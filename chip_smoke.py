@@ -38,10 +38,14 @@ JSON line ``{"kernels": [...]}`` and, last, one JSON line
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
+import ctypes
+import hashlib
 import io
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -233,7 +237,33 @@ def phase_device_and_build():
                 say("  ptxas:", line.split("function")[1].strip())
             if "registers" in line or "spill" in line.lower() and "0 bytes spill" not in line:
                 say("  ptxas:", line.strip())
-    return smi
+    # the instruction mix of the cell kernels, as the card runs them
+    cuobjdump = os.path.join(os.path.dirname(_build._find_nvcc()), "cuobjdump")
+    if os.path.exists(cuobjdump):
+        sass = subprocess.run(
+            [cuobjdump, "-sass", _build.library_path("cell_kernels")],
+            capture_output=True, text=True).stdout
+        for block in re.split(r"\n\s*Function : ", sass)[1:]:
+            ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+                             r"([A-Z][A-Z0-9_.]+)", block)
+            mix = collections.Counter(o.split(".")[0] for o in ops)
+            say(f"  sass {block.split()[0]}: {len(ops)} instructions; "
+                + ", ".join(f"{k} {v}" for k, v in mix.most_common(10)))
+    else:
+        say("  sass: not measured (no cuobjdump beside nvcc)")
+    # what the card holds of each cell kernel at once, as it is launched
+    # (K6b's shared memory grows with the window; the solver's is 2048)
+    occ = {}
+    for form in cmd.KERNEL_FORMS:
+        for L in (4, 6):
+            o = cmd.occupancy(form, L, 2048)
+            occ.setdefault(form, o)
+            say(f"  {KERNEL_IDS[form]} ({L} legs): {o['registers']} registers "
+                f"and {o['local_bytes']} B of local memory a thread, "
+                f"{o['threads']} threads and {o['shared_bytes']} B of shared "
+                f"memory a block, {o['blocks_per_sm']} blocks = "
+                f"{o['warps_per_sm']} warps resident an SM")
+    return smi, occ
 
 
 def phase_cli(tmp):
@@ -494,13 +524,15 @@ MAP_POSES = 32768
 MAP_CHUNK = 2048
 
 
-def run_map(data, *extra):
+def run_map(data, *extra, path_name=""):
     """``cli map --dir data --leg m2 *extra`` with the launch counts set to 0
-    just before and read just after: (JSON line, mask, launches)."""
+    just before and read just after: (JSON line, mask, launches).  The
+    kernel time of the run is printed under ``cli map <path_name>``."""
     cm.multileg_kernel.launches = 0
     cm.csr_window_kernel.launches = 0
     buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
+    with kernel_clock(("multileg", "csr_window")) as recs, \
+            contextlib.redirect_stdout(buf):
         cli.main(["map", "--dir", data, "--leg", "m2", *extra])
     torch.cuda.synchronize()
     launches = {"multileg": cm.multileg_kernel.launches,
@@ -517,6 +549,8 @@ def run_map(data, *extra):
         f"{line['seconds']} poses/s {line['poses_per_s']} window "
         f"{line['window']} host syncs {line['host_syncs']} launches K3 "
         f"{launches['multileg']} K4 {launches['csr_window']}")
+    report_clock(f"cli map {path_name}".rstrip(), recs,
+                 {"multileg": multileg_bound(make_robot(QUAD_MOUNTS))})
     return line, mask, launches
 
 
@@ -531,8 +565,9 @@ def phase_cli_map(data):
     eager code), so they run, through the same command, on a directory that
     holds the same terrain and every 16th candidate."""
     say("phase 5: cli map on the prepared directory (m2 quadruped, k = 4)")
-    _, m_dma, l_dma = run_map(data)
-    _, m_csr, l_csr = run_map(data, "--solver", "csr")
+    _, m_dma, l_dma = run_map(data, path_name="(csr-dma)")
+    _, m_csr, l_csr = run_map(data, "--solver", "csr",
+                              path_name="--solver csr")
     sub = data + "_sub"
     os.makedirs(sub)
     lio.save_points(lio.load_points(os.path.join(data, "numpy_input_t")),
@@ -541,10 +576,11 @@ def phase_cli_map(data):
         lio.load_points(os.path.join(data, "numpy_input_b"))[::SUB_STRIDE],
         os.path.join(sub, "numpy_input_b"))
     say(f"  the same terrain with every {SUB_STRIDE}th body candidate:")
-    _, s_dma, _ = run_map(sub)
+    _, s_dma, _ = run_map(sub, path_name="every 16th candidate")
     _, s_plain, l_plain = run_map(sub, "--backend", "torch")
     _, s_csr_plain, _ = run_map(sub, "--solver", "csr", "--backend", "torch")
-    _, s_rot, l_rot = run_map(sub, "--rot-sweep")
+    _, s_rot, l_rot = run_map(sub, "--rot-sweep",
+                              path_name="--rot-sweep, every 16th candidate")
     check(np.array_equal(m_dma, m_csr),
           f"csr-dma and csr masks differ on {int((m_dma != m_csr).sum())}")
     check(np.array_equal(s_dma, m_dma[::SUB_STRIDE]),
@@ -592,6 +628,110 @@ def intercepted(module, name, hook):
         setattr(module, name, real)
         if counts:
             real.launches = passing.launches
+
+
+# ---------------------------------------------------------------------------
+# kernel time on a path: CUDA events around every call of a C launcher
+# ---------------------------------------------------------------------------
+
+KERNEL_IDS = {"distance": "K2", "multileg": "K3",
+              "csr_window": "K4", "item": "K5", "cell_quat_major": "K6a",
+              "cell_shared": "K6b", "cell_cm_perleg": "K6c"}
+LAUNCHERS = {  # kernel -> (its library, its C launcher)
+    "distance": (ck._library, "legmov_distance"),
+    "multileg": (cm._library, "legmov_multileg"),
+    "csr_window": (cm._library, "legmov_csr_window"),
+    "item": (cmd.library, "legmov_item"),
+    "cell_quat_major": (cmd.library, "legmov_cell_quat_major"),
+    "cell_shared": (cmd.library, "legmov_cell_shared"),
+    "cell_cm_perleg": (cmd.library, "legmov_cell_cm_perleg"),
+}
+#: (kernel, path) -> launches, summed kernel ms, summed bound ms (or None)
+PATH_TIMES = {}
+
+
+@contextlib.contextmanager
+def kernel_clock(kernels):
+    """Record a pair of CUDA events around every call of the C launchers of
+    ``kernels`` inside the block: the events enclose the kernel's enqueue
+    and nothing of the wrapper's host work, so on a host-bound path the
+    interval is the kernel's own time and not the host's.  Yields kernel ->
+    list of (start, end, launcher arguments); read them after the path's
+    last synchronisation."""
+    recs = {key: [] for key in kernels}
+    saved = []
+    for key in kernels:
+        get_lib, fname = LAUNCHERS[key]
+        lib = get_lib()
+        real = getattr(lib, fname)
+
+        def timed(*args, _real=real, _rec=recs[key]):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            err = _real(*args)
+            e1.record()
+            _rec.append((e0, e1, args))
+            return err
+
+        setattr(lib, fname, timed)
+        saved.append((lib, fname, real))
+    try:
+        yield recs
+    finally:
+        for lib, fname, real in saved:
+            setattr(lib, fname, real)
+
+
+def report_clock(path, recs, bounds=None):
+    """Sum the events of one path (after its last synchronisation) per
+    kernel, beside the summed bound where ``bounds[kernel](records)`` gives
+    one, and keep them in PATH_TIMES."""
+    torch.cuda.synchronize()
+    parts = []
+    for key, rec in recs.items():
+        if not rec:
+            continue
+        ms = sum(a.elapsed_time(b) for a, b, _ in rec)
+        bd = bounds[key](rec) if bounds and key in bounds else None
+        PATH_TIMES[key, path] = {"launches": len(rec), "ms": ms,
+                                 "bound_ms": bd}
+        parts.append(f"{KERNEL_IDS[key]} {len(rec)} launches {ms:.3f} ms "
+                     + (f"(bound {bd:.3f} ms)" if bd is not None
+                        else "(bound not measured)"))
+    if parts:
+        say(f"    kernel time on {path}: " + "; ".join(parts))
+
+
+def dist_bound(rec):
+    """K2's bound over its launches: n points each (argument 9)."""
+    flops = ck.dist_flops_per_point(ck.make_distance_kernel(get_m2_leg()).consts)
+    return sum(bound_ms(args[9], DIST_BYTES_PER_POINT, flops)[0]
+               for _, _, args in rec)
+
+
+def multileg_bound(robot):
+    """K3's bound over its launches: P poses x C candidates (arguments 4
+    and 5), every leg of ``robot`` on each."""
+    per_leg = sum(cm.leg_flops(c) for c in cm.make_multileg_kernel(robot).consts)
+
+    def total(rec):
+        return sum(bound_ms(args[4] * args[5], 12,
+                            cm.UNROTATE_FLOPS + per_leg)[0]
+                   for _, _, args in rec)
+    return total
+
+
+def cell_bound(words, C, CH, S, legtab_numel):
+    """K6's bound for one launch from its [C, 10] words: 12 bytes a chunk
+    element once plus queue, table and outputs, against 39 operations per
+    element of an evaluated (chunk, orientation) and 860 per leg pipeline
+    on an element inside the box.  (ms, by, bytes ms, operations ms)"""
+    cnt = words[:, 3:].sum(dim=0, dtype=torch.int64).tolist()
+    n_bytes = (cnt[3] * 12 + C * CH * (8 + S) + legtab_numel * 4
+               + C * (16 + 4 * cmd.OUT_WORDS))
+    n_ops = cnt[4] * cmd.HEAD_FLOPS + cnt[6] * cmd.LEG_FLOPS
+    return bound_of(n_bytes, n_ops)
 
 
 def same_cells(a, b):
@@ -768,29 +908,24 @@ def phase_map_scale():
     # events around every launch; the rest is queue building (eager tensor
     # code, its launches and the host synchronisations).  The first launch
     # of the first chunk is kept as phase 7's real round.
-    captured, events = [], []
+    captured = []
 
     def hook(real, tab, legs_in, starts, lens, masks, *rest):
         if not captured:
             captured.append((tab, legs_in, starts, lens, masks))
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        out = real(tab, legs_in, starts, lens, masks, *rest)
-        e1.record()
-        events.append((e0, e1))
-        return out
+        return real(tab, legs_in, starts, lens, masks, *rest)
 
-    with intercepted(cm, "csr_window_kernel", hook):
+    with intercepted(cm, "csr_window_kernel", hook), \
+            kernel_clock(("csr_window",)) as recs:
         _, quorum2, _, _, wall2 = map_bench.solve_chunks(
             solve, csr, cols, body_d, quats_d, k, MAP_CHUNK)
-    torch.cuda.synchronize()
-    k4_ms = sum(a.elapsed_time(b) for a, b in events)
+    report_clock("the 10.24 M map", recs)
+    k4_ms = PATH_TIMES["csr_window", "the 10.24 M map"]["ms"]
     check(np.array_equal(quorum2, quorum), "the instrumented solve differs")
-    check(len(events) == launches and len(captured) == 1,
+    check(len(recs["csr_window"]) == launches and len(captured) == 1,
           "the instrumented solve launched another number of kernels")
     queue_share = 1.0 - k4_ms / (wall2 * 1e3)
-    say(f"  instrumented solve: wall {wall2:.3f} s, the {len(events)} K4 "
+    say(f"  instrumented solve: wall {wall2:.3f} s, the {launches} K4 "
         f"launches take {k4_ms:.1f} ms of it; queue building and the rest "
         f"of the eager code {queue_share:.3f} of the wall")
     return {"poses_per_s": MAP_POSES / wall, "launches": launches,
@@ -929,6 +1064,9 @@ SOLVE_COUNTERS = {
     "cell_shared": (cce, "cell_eval_shared"),
     "cell_cm_perleg": (cce, "cell_eval_cm_perleg"),
 }
+CELL_WRAPPERS = {"cell_eval_quat_major": "cell_quat_major",
+                 "cell_eval_shared": "cell_shared",
+                 "cell_eval_cm_perleg": "cell_cm_perleg"}
 GATE_CELLS = 256     # cells of a real batch held against the plain versions
 HEX_GATE_CELLS = 96  # the same on the hexapod's batch
 EAGER_CELLS = 64     # of those, held against the eager evaluator
@@ -960,6 +1098,15 @@ def run_solve(data, *extra, capture=None, show_levels=False):
         kept.setdefault("kernel_args", a)
         return real(*a, **kw)
 
+    words = {name: [] for name in CELL_WRAPPERS}
+
+    def keep_words(name):
+        def hook(real, queue, cellinfo, legtab, *a, **kw):
+            res = real(queue, cellinfo, legtab, *a, **kw)
+            words[name].append((res, *queue.role.shape, legtab.numel()))
+            return res
+        return hook
+
     buf = io.StringIO()
     with contextlib.ExitStack() as stack:
         stack.enter_context(intercepted(hs, "solve_positionability",
@@ -968,6 +1115,10 @@ def run_solve(data, *extra, capture=None, show_levels=False):
             stack.enter_context(intercepted(cce, "build_cell_queue",
                                             keep_queue))
             stack.enter_context(intercepted(cce, capture, keep_call))
+        for name in CELL_WRAPPERS:
+            stack.enter_context(intercepted(cce, name, keep_words(name)))
+        recs = stack.enter_context(kernel_clock(
+            ("distance", "item", *CELL_WRAPPERS.values())))
         stack.enter_context(contextlib.redirect_stdout(buf))
         cli.main(["solve", "--dir", data, "--leg", "m2", "--profile", *extra])
     torch.cuda.synchronize()
@@ -995,6 +1146,15 @@ def run_solve(data, *extra, capture=None, show_levels=False):
         for l in lines:
             if l.startswith("[hier] depth="):
                 say("    " + l)
+
+    def cell_bounds(name):
+        return lambda rec: sum(cell_bound(*w)[0] for w in words[name]
+                               if w[1] > 0 and w[2] > 0)
+
+    report_clock(f"cli solve {' '.join(extra)}", recs,
+                 {"distance": dist_bound,
+                  **{key: cell_bounds(name)
+                     for name, key in CELL_WRAPPERS.items()}})
     return line, rec, launches, kept
 
 
@@ -1073,7 +1233,7 @@ def phase_cli_solve(data, quick):
     for k in ("4", "3"):
         line, rec, la, kept = run_solve(
             data, "--legs", "6", "--k", k, *deep, "--mode", "shared",
-            capture="cell_eval_shared")
+            capture="cell_eval_shared", show_levels=True)
         check(la["cell_shared"] > 0 and line["edge"] > 0
               and line["cells"] > line["edge"], f"hexapod solve: {line}")
         out["seconds"]["hex" + k] = line["seconds"]
@@ -1238,8 +1398,10 @@ def bound_of(n_bytes, n_ops):
                                                         t_b, t_o)
 
 
-def phase_cell_kernels(solve, gates, terrain):
-    """K5 and K6a/K6b/K6c alone: special values, and their times."""
+def phase_cell_kernels(solve, gates, terrain, others=()):
+    """K5 and K6a/K6b/K6c alone: special values, and their times; then
+    against the builds of the sources ``others`` (earlier
+    ``cell_kernels.cu`` files)."""
     robot = make_robot(QUAD_MOUNTS)
     L = 4
     reach = hs._total_reach(robot)
@@ -1313,7 +1475,8 @@ def phase_cell_kernels(solve, gates, terrain):
     rows_out["item"] = {"max_abs_err": float(min(bad5, 1)), "n": work["pairs"],
                         "ms": ms5, "plain_ms": plain5, "bound_ms": b5,
                         "bound_by": by5}
-    del tab, got, want
+    k5_in = (tab, g, cmd.item_params(k5.consts, k))
+    del got, want
 
     # K6: special values and a dead queue on the sampled cells, then the
     # times on the whole captured batches
@@ -1339,6 +1502,15 @@ def phase_cell_kernels(solve, gates, terrain):
          lambda q, b, xs: cce.cell_eval_cm_perleg_plain(
              q, b["cellinfo"], b["legtab"], xs, b["ys"], b["zs"], b["consts"],
              b["k"])),
+        # K6a's shared-rule branch (LEGMOV_CSR_QUAT_MAJOR=1) on the shared
+        # rule's batch
+        ("cell_quat_major_shared", "shared", "quat_major",
+         lambda q, b, xs: cce.cell_eval_quat_major(
+             q, b["cellinfo"], b["legtab"], xs, b["ys"], b["zs"], b["consts"],
+             b["k"], True, b["window"]),
+         lambda q, b, xs: cce.cell_eval_quat_major_plain(
+             q, b["cellinfo"], b["legtab"], xs, b["ys"], b["zs"], b["consts"],
+             b["k"], True)),
     )
     for name, mode, form, kern, plain in forms:
         b = unpack_batch(solve, mode)
@@ -1367,16 +1539,22 @@ def phase_cell_kernels(solve, gates, terrain):
         say(f"  {name} ({form}) on {few.numel()} cells with NaN/inf/1e9 "
             f"footholds and on an all-dead queue: mismatches {bad}")
         check(bad == 0, f"{name}: {bad} mismatches against the plain version")
+        # how unevenly the work falls on the batch's cells
+        per_cell = res[:, 9].to(torch.float64)
+        tot = q.tot.to(torch.float64)
+        mean = float(per_cell.mean())
+        say(f"  {name}: leg pipelines inside the box a cell: mean {mean:.1f}, "
+            f"99th percentile {float(per_cell.quantile(0.99)):.0f}, max "
+            f"{float(per_cell.max()):.0f} (max / mean "
+            f"{float(per_cell.max()) / max(mean, 1e-9):.1f}); queue chunks a "
+            f"cell: mean {float(tot.mean()):.2f}, max {int(q.tot.max())}")
         ms = time_cuda(lambda: kern(q, b, b["xs"]))
         # the queue build that feeds the kernel, on the same batch (the
         # role bytes differ between the rules, not between a rule's forms)
         q_args, q_kw = solve[mode]["queue_args"]
         ms_q = time_cuda(lambda: cce.build_cell_queue(*q_args, **q_kw),
                          warmup=1, reps=5)
-        n_bytes = (cnt[3] * 12 + C * CH * (8 + S) + b["legtab"].numel() * 4
-                   + C * (16 + 4 * cmd.OUT_WORDS))
-        n_ops = cnt[4] * cmd.HEAD_FLOPS + cnt[6] * cmd.LEG_FLOPS
-        bd, by, t_b, t_o = bound_of(n_bytes, n_ops)
+        bd, by, t_b, t_o = cell_bound(res, C, CH, S, b["legtab"].numel())
         say(f"  {name} on a real batch of {C} cells (queue width {CH}, window "
             f"{b['window']}): chunks {cnt[0]}, (chunk, orientation) items "
             f"{cnt[1]}, leg pipelines {cnt[2]}; elements {cnt[3]} / {cnt[4]} "
@@ -1391,8 +1569,117 @@ def phase_cell_kernels(solve, gates, terrain):
             "max_abs_err": float(min(bad, 1)), "n": cnt[6], "ms": ms,
             "plain_ms": gates["plain_ms"][form, mode],
             "plain_cells": GATE_CELLS, "cells": C, "bound_ms": bd,
-            "bound_by": by, "queue_build_ms": ms_q}
+            "bound_by": by, "queue_build_ms": ms_q,
+            "work_max_over_mean": float(per_cell.max()) / max(mean, 1e-9)}
+
+    # when asked: the same kernels of other builds on the same inputs, each
+    # timed in turns with this build's (other, this, this, other), all
+    # through the C launchers
+    if others:
+        batches = {"per-leg": unpack_batch(solve, "per-leg"),
+                   "shared": unpack_batch(solve, "shared")}
+        for label, lib in alternatives(others):
+            compare_builds(label, lib, cmd.library(), batches, k5_in)
     return rows_out
+
+
+def bind_cell_library(lib):
+    """Argument types for a library built from a ``cell_kernels.cu``; an
+    earlier one may lack ``legmov_cell_occupancy``."""
+    for name, argtypes in cmd.signatures().items():
+        if hasattr(lib, name):
+            getattr(lib, name).restype = ctypes.c_int
+            getattr(lib, name).argtypes = argtypes
+    return lib
+
+
+def alternatives(sources):
+    """Build each source with the package's nvcc flags, one nvcc each,
+    started together, into the build directory, and print what ptxas says
+    of its kernels.  [(source, lib)]"""
+    nvcc = _build._find_nvcc()
+    os.makedirs(_build.build_dir(), exist_ok=True)
+    procs = []
+    t0 = time.perf_counter()
+    for src in sources:
+        with open(src, "rb") as f:
+            h = hashlib.sha256(f.read())
+        so = os.path.join(_build.build_dir(),
+                          f"compare_{h.hexdigest()[:16]}.so")
+        procs.append((src, so, subprocess.Popen(
+            [nvcc, *_build.NVCC_FLAGS, "-o", so, src],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    out = []
+    for label, so, proc in procs:
+        o, e = proc.communicate()
+        check(proc.returncode == 0, f"nvcc failed on {label}:\n{o}\n{e}")
+        say(f"  built {label} in {time.perf_counter() - t0:.1f} s")
+        for line in (o + e).splitlines():
+            if "Compiling entry" in line:
+                say("    ptxas:", line.split("function")[1].strip())
+            if "registers" in line or ("spill" in line.lower()
+                                       and "0 bytes spill" not in line):
+                say("    ptxas:", line.strip())
+        out.append((label, bind_cell_library(ctypes.CDLL(so))))
+    return out
+
+
+def cells_call(lib, form, q, b, params, shared=False):
+    """One launch of a cell kernel of ``lib`` on a captured batch."""
+    C, CH, S = q.role.shape
+    out = torch.zeros((C, cmd.OUT_WORDS), dtype=torch.int32, device=DEV)
+    ptrs = [t.data_ptr() for t in (q.cst, q.cln, q.role, q.tot, b["cellinfo"],
+                                   b["legtab"], b["xs"], b["ys"], b["zs"],
+                                   out)]
+    tail = [C, CH, S, b["window"]] + ([int(shared)] if form == "quat_major"
+                                      else [])
+    err = getattr(lib, "legmov_cell_" + form)(*ptrs, *tail,
+                                              ctypes.byref(params),
+                                              cmd.stream())
+    check(err == 0, f"legmov_cell_{form}: CUDA error {err}")
+    return out
+
+
+def item_call(lib, tab, g, params):
+    bits = torch.zeros(tab.shape[0], dtype=torch.int32, device=DEV)
+    err = lib.legmov_item(tab.data_ptr(), g[0].data_ptr(), g[1].data_ptr(),
+                          g[2].data_ptr(), tab.shape[0], g[0].shape[1], 1,
+                          bits.data_ptr(), ctypes.byref(params), cmd.stream())
+    check(err == 0, f"legmov_item: CUDA error {err}")
+    return bits
+
+
+def compare_builds(label, lib, here, batches, k5_in):
+    """K5, K6a, K6b and K6c of ``lib`` against this build's (``here``) on
+    the same inputs: equal outputs, then times in turns (other, this, this,
+    other), CUDA events, median of 20 launches each (K6c: of 5)."""
+    say(f"phase 10: {label} against this build")
+    cases = [("K5", None, "item", False),
+             ("K6a", "per-leg", "quat_major", False),
+             ("K6b", "shared", "shared", False),
+             ("K6a shared branch", "shared", "quat_major", True),
+             ("K6c", "per-leg", "cm_perleg", False)]
+    for kid, mode, form, shared in cases:
+        if form == "item":
+            tab, g, params = k5_in
+            other = lambda: item_call(lib, tab, g, params)
+            this = lambda: item_call(here, tab, g, params)
+        else:
+            b = batches[mode]
+            q = b["queue"]
+            params = cmd.item_params(b["consts"], b["k"])
+            other = lambda: cells_call(lib, form, q, b, params, shared)
+            this = lambda: cells_call(here, form, q, b, params, shared)
+        check(torch.equal(other(), this()),
+              f"{label}: {kid} gives other words than this build's")
+        reps = 5 if form == "cm_perleg" else 20
+        t = [time_cuda(other, warmup=1, reps=reps),
+             time_cuda(this, warmup=1, reps=reps),
+             time_cuda(this, warmup=1, reps=reps),
+             time_cuda(other, warmup=1, reps=reps)]
+        say(f"  {kid}: equal words; ms in turns: other {t[0]:.4f}, this "
+            f"{t[1]:.4f}, this {t[2]:.4f}, other {t[3]:.4f}; other / this "
+            f"{(t[0] + t[3]) / (t[1] + t[2]):.3f}")
 
 
 def main(argv=None):
@@ -1402,11 +1689,16 @@ def main(argv=None):
                     "and 4 need 2, 7 needs 6, 9 and 10 need 8)")
     ap.add_argument("--quick", action="store_true",
                     help="phase 8's deep solves on a quarter of the box")
+    ap.add_argument("--against", action="append", default=[],
+                    metavar="CELL_KERNELS_CU",
+                    help="phase 10 also times the kernels built from this "
+                    "source (an earlier cell_kernels.cu), in turns with "
+                    "this tree's; repeatable")
     args = ap.parse_args(argv)
     on = {int(p) for p in args.phases.split(",")} | {1}
     whole = on >= set(range(1, 11)) and not args.quick
 
-    smi = phase_device_and_build()
+    smi, occupancy = phase_device_and_build()
     launches = map_launches = worst = rows = row3 = row4 = None
     solve = gates = cell_rows = None
     with tempfile.TemporaryDirectory(prefix="legmov_smoke_") as tmp:
@@ -1430,7 +1722,7 @@ def main(argv=None):
     if 9 in on:
         gates = phase_solve_gates(solve, terrain)
     if 10 in on:
-        cell_rows = phase_cell_kernels(solve, gates, terrain)
+        cell_rows = phase_cell_kernels(solve, gates, terrain, args.against)
     solve_launches_ = solve["launches"] if solve else None
     solve = None
     torch.cuda.empty_cache()
@@ -1470,8 +1762,12 @@ def main(argv=None):
             "name": name, "route": "cuda",
             "source": "legmov_tpu_torch/csrc/cell_kernels.cu",
             "replaces": replaces, "launches": n_launches, **cell_rows[key],
-            "library_ms": None, **more,
+            "library_ms": None, "occupancy": occupancy[key], **more,
         }
+
+    def on_paths(key):
+        return {"paths": {path: v for (k, path), v in PATH_TIMES.items()
+                          if k == key}}
 
     for name, n in map_launches.items():
         check(n > 0, f"the {name} kernel was launched no time on the map path")
@@ -1481,25 +1777,28 @@ def main(argv=None):
     say(json.dumps({"kernels": [
         entry("reachability", "legmov_reach_kernel", 245, "bench-16M"),
         entry("distance", "legmov_dist_kernel", 588, "bench-4M",
-              ) | {"launches_solve": solve_launches_["distance"]},
+              ) | {"launches_solve": solve_launches_["distance"]}
+        | on_paths("distance"),
         map_entry("legmov_multileg_kernel",
                   "legmov_tpu/ops/pallas_multileg.py:394",
-                  map_launches["multileg"], row3),
+                  map_launches["multileg"], row3, **on_paths("multileg")),
         map_entry("legmov_csr_window_kernel",
                   "legmov_tpu/ops/csr_grid.py:735",
                   map_launches["csr_window"], row4,
                   launches_map_scale=scale["launches"],
                   map_scale_poses_per_s=scale["poses_per_s"],
-                  map_scale_queue_share=scale["queue_share"]),
+                  map_scale_queue_share=scale["queue_share"],
+                  **on_paths("csr_window")),
         cell_entry("legmov_item_kernel", "item",
                    "legmov_tpu/ops/pallas_multileg_dist.py:533",
-                   solve_launches_["item"]),
+                   solve_launches_["item"], **on_paths("item")),
         cell_entry("legmov_cell_quat_major_kernel", "cell_quat_major",
                    "legmov_tpu/ops/csr_cell_eval.py:1192",
-                   solve_launches_["cell_quat_major"]),
+                   solve_launches_["cell_quat_major"],
+                   **on_paths("cell_quat_major")),
         cell_entry("legmov_cell_shared_kernel", "cell_shared",
                    "legmov_tpu/ops/csr_cell_eval.py:1166",
-                   solve_launches_["cell_shared"]),
+                   solve_launches_["cell_shared"], **on_paths("cell_shared")),
         cell_entry("legmov_cell_cm_perleg_kernel", "cell_cm_perleg",
                    "legmov_tpu/ops/csr_cell_eval.py:1166",
                    solve_launches_["cell_cm_perleg"]),

@@ -19,11 +19,16 @@
 // threshold directions) arrives as one by-value `__grid_constant__` block for
 // up to six legs; what depends on the orientation (per leg the [2][2][4]
 // circle tables, ten corners and the region threshold directions: 151 floats)
-// is one row of a packed table, staged in shared memory.
+// is one row of a packed table, staged in shared memory: K6c as the table
+// holds it, K5, K6a and K6b in a layout of their own (below) that gives a
+// circle or a corner in two 16-byte loads.
 //
 // One device function under four kernels: item_head + item_leg are the fused
-// validity_child item (several_leg_octree.cu:19-151); K5 runs it over dense
-// candidate rows, K6a/K6b/K6c over per-cell queues of CSR chunks.
+// validity_child item (several_leg_octree.cu:19-151), one body over either
+// layout; K5 runs it over dense candidate rows, K6a/K6b/K6c over per-cell
+// queues of CSR chunks.  K5, K6a and K6b inline the item, so no call saves
+// live registers around each leg (out of line they ran 10-20 % slower); K6c
+// calls it out of line, which is faster there.
 
 #include <cuda_runtime.h>
 
@@ -37,8 +42,12 @@
 #define CK_OUT_WORDS 10    // valid, edge, leaf, 3 work counters, 4 element counters
 #define CK_MAX_QUATS 64
 #define CK_MAX_WINDOW 40960  // K6b keeps one byte per candidate of a chunk
+#define CK_FULL 0xffffffffu
 
-// offsets inside a leg block; circle tables are [upper][ext][slot]
+#define CK_RING 64           // per-warp ring of candidates that passed the head
+
+// offsets inside a leg block of a table row (ops/cuda_multileg_dist.py
+// leg_blocks); circle tables are [upper][ext][slot]
 #define CK_CX 0
 #define CK_CY 16
 #define CK_CR 32
@@ -53,6 +62,23 @@
 #define CK_MID_NEG 144
 #define CK_SAT_DIR 145
 #define CK_SAT_NEG 149
+
+// The kernels stage a row in shared memory in a layout of their own: the
+// header as it is, then per leg a record of CK_KL_LEG floats, 16-byte
+// aligned, so that a circle or a corner is two 16-byte loads:
+//   circle r = 4 (2 upper + ext) + slot at CK_KL_CIRC + 8 r:
+//       cx, cy, r2, hi2 | lo2, att, r, 0
+//   corner j at CK_KL_CORN + 8 j: pcx, pcy, 2 pcx, 2 pcy | pcx pcx, pcy pcy,
+//       valid, 0
+//   CK_KL_DIR: mid_dir 2, mid_neg, sat_neg lo | sat_dir 4 | sat_neg hi, 0...
+// 2 pcx is exact and pcx pcx is the product the item formed itself, so the
+// corner score keeps its bits.
+#define CK_KL_CIRC 0
+#define CK_KL_CORN 128
+#define CK_KL_DIR 208
+#define CK_KL_LEG 224
+#define CK_KW(L) (CK_HDR + (L) * CK_KL_LEG)
+#define CK_MAX_KW CK_KW(CK_MAX_LEGS)
 
 // mirrored field for field by ctypes.Structure in ops/cuda_multileg_dist.py;
 // every member is 4 bytes wide, so there is no padding
@@ -114,56 +140,179 @@ __device__ __forceinline__ bool item_head(const float* T, float x, float y,
            (rz > -T[15]) & (rz <= T[15]);
 }
 
+// entry i of a row in the kernels' layout, from `row`, a row of the table
+__device__ __forceinline__ float staged_value(const float* row, int i) {
+    if (i < CK_HDR) return row[i];
+    const int l = (i - CK_HDR) / CK_KL_LEG;
+    const int o = (i - CK_HDR) - l * CK_KL_LEG;
+    const float* B = row + CK_HDR + l * CK_LEG_BLOCK;
+    if (o < CK_KL_CORN) {
+        const int r = o >> 3;
+        switch (o & 7) {
+            case 0: return B[CK_CX + r];
+            case 1: return B[CK_CY + r];
+            case 2: return B[CK_CR2 + r];
+            case 3: return B[CK_CHI2 + r];
+            case 4: return B[CK_CLO2 + r];
+            case 5: return B[CK_ATT + r];
+            case 6: return B[CK_CR + r];
+            default: return 0.0f;
+        }
+    }
+    if (o < CK_KL_DIR) {
+        const int j = (o - CK_KL_CORN) >> 3;
+        const float pcx = B[CK_CORX + j], pcy = B[CK_CORY + j];
+        switch (o & 7) {
+            case 0: return pcx;
+            case 1: return pcy;
+            case 2: return 2.0f * pcx;
+            case 3: return 2.0f * pcy;
+            case 4: return pcx * pcx;
+            case 5: return pcy * pcy;
+            case 6: return B[CK_CORV + j];
+            default: return 0.0f;
+        }
+    }
+    switch (o - CK_KL_DIR) {
+        case 0: return B[CK_MID_DIR];
+        case 1: return B[CK_MID_DIR + 1];
+        case 2: return B[CK_MID_NEG];
+        case 3: return B[CK_SAT_NEG];
+        case 4: return B[CK_SAT_DIR];
+        case 5: return B[CK_SAT_DIR + 1];
+        case 6: return B[CK_SAT_DIR + 2];
+        case 7: return B[CK_SAT_DIR + 3];
+        case 8: return B[CK_SAT_NEG + 1];
+        default: return 0.0f;
+    }
+}
+
+// entries t0, t0 + step, ... of row `row` in the kernels' layout, `kw`
+// floats, into T; with `cell`, header slots 4-7 become the cell centre and
+// parent-valid
+__device__ __forceinline__ void stage_entries(float* T, const float* row,
+                                              int kw, int t0, int step,
+                                              const float* cell, bool pv) {
+    for (int i = t0; i < kw; i += step) {
+        float v = staged_value(row, i);
+        if (cell != nullptr && i >= 4 && i < 8)
+            v = i < 7 ? cell[i - 4] : (pv ? 1.0f : 0.0f);
+        T[i] = v;
+    }
+}
+
+__device__ __forceinline__ float4 lds4(const float* p) {
+    return *reinterpret_cast<const float4*>(p);
+}
+
+// the same load, which the compiler may not merge with an earlier one of the
+// same address (so what it loaded need not stay live in registers)
+__device__ __forceinline__ float4 lds4_again(const float* p) {
+#if defined(__CUDA_ARCH__)
+    float4 v;
+    asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];"
+                 : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+                 : "r"((unsigned)__cvta_generic_to_shared(p)));
+    return v;
+#else
+    return lds4(p);
+#endif
+}
+
+// What the plane clamp reads of a leg: one circle, one corner, the
+// threshold directions that pick the (upper, ext) configuration.
+struct Circle { float cx, cy, r2, hi2, lo2, r; bool att; };
+struct Corner { float pcx, pcy, tpx, tpy, pxx, pyy; bool valid; };
+struct Dirs { float mid_c, mid_s, lo_c, lo_s, hi_c, hi_s; bool mid_neg, lo_neg, hi_neg; };
+
+// Where the item finds them.  TableRow: a row of the table as the table
+// holds it (ops/cuda_multileg_dist.py leg_blocks); K6c stages that.
+// Staged: the kernels' layout above, two 16-byte loads a circle or corner;
+// K5, K6a and K6b stage that.  The corner's 2 pcx and pcx pcx are the same
+// values either way, so both give the same bits.
+struct TableRow {
+    static constexpr int leg_floats = CK_LEG_BLOCK;
+    __device__ static Dirs dirs(const float* B) {
+        return {B[CK_MID_DIR], B[CK_MID_DIR + 1], B[CK_SAT_DIR],
+                B[CK_SAT_DIR + 1], B[CK_SAT_DIR + 2], B[CK_SAT_DIR + 3],
+                B[CK_MID_NEG] > 0.5f, B[CK_SAT_NEG] > 0.5f,
+                B[CK_SAT_NEG + 1] > 0.5f};
+    }
+    // circle r = 4 (2 upper + ext) + slot
+    __device__ static Circle circle(const float* B, int r) {
+        return {B[CK_CX + r], B[CK_CY + r], B[CK_CR2 + r], B[CK_CHI2 + r],
+                B[CK_CLO2 + r], B[CK_CR + r], B[CK_ATT + r] > 0.5f};
+    }
+    __device__ static Circle circle_again(const float* B, int r) {
+        return circle(B, r);
+    }
+    __device__ static Corner corner(const float* B, int j) {
+        const float pcx = B[CK_CORX + j], pcy = B[CK_CORY + j];
+        return {pcx, pcy, 2.0f * pcx, 2.0f * pcy, pcx * pcx, pcy * pcy,
+                B[CK_CORV + j] > 0.5f};
+    }
+};
+
+struct Staged {
+    static constexpr int leg_floats = CK_KL_LEG;
+    __device__ static Dirs dirs(const float* B) {
+        const float4 d0 = lds4(B + CK_KL_DIR);
+        const float4 d1 = lds4(B + CK_KL_DIR + 4);
+        return {d0.x, d0.y, d1.x, d1.y, d1.z, d1.w, d0.z > 0.5f, d0.w > 0.5f,
+                B[CK_KL_DIR + 8] > 0.5f};
+    }
+    __device__ static Circle circle(const float* B, int r) {
+        const float4 u = lds4(B + CK_KL_CIRC + 8 * r);
+        const float4 w = lds4(B + CK_KL_CIRC + 8 * r + 4);
+        return {u.x, u.y, u.z, u.w, w.x, w.z, w.y > 0.5f};
+    }
+    __device__ static Circle circle_again(const float* B, int r) {
+        const float4 u = lds4_again(B + CK_KL_CIRC + 8 * r);
+        const float4 w = lds4_again(B + CK_KL_CIRC + 8 * r + 4);
+        return {u.x, u.y, u.z, u.w, w.x, w.z, w.y > 0.5f};
+    }
+    __device__ static Corner corner(const float* B, int j) {
+        const float4 u = lds4(B + CK_KL_CORN + 8 * j);
+        const float4 w = lds4(B + CK_KL_CORN + 8 * j + 4);
+        return {u.x, u.y, u.z, u.w, w.x, w.y, w.z > 0.5f};
+    }
+};
+
 // ops/plane.py plane_clamp on the (upper, ext) configuration's four circles
-// and the ten corners; B = the leg's block of the row
+// and the ten corners; B = the leg's part of the staged row
+template <class Lay>
 __device__ __forceinline__ void plane_clamp(const ItemParams& P, const float* B,
                                             float xp, float yp, bool& overall,
                                             float& out_x, float& out_y) {
+    const Dirs d = Lay::dirs(B);
     const bool nn = yp >= 0.0f;
-    const bool mid_neg = B[CK_MID_NEG] > 0.5f;
-    const bool crossm = (yp * B[CK_MID_DIR] - xp * B[CK_MID_DIR + 1]) > 0.0f;
-    const bool upper = nn ? (mid_neg | crossm) : (mid_neg & crossm);
-    const bool lo_neg = B[CK_SAT_NEG] > 0.5f;
-    const bool hi_neg = B[CK_SAT_NEG + 1] > 0.5f;
-    const bool c_lo = (yp * B[CK_SAT_DIR] - xp * B[CK_SAT_DIR + 1]) > 0.0f;
-    const bool c_hi = (yp * B[CK_SAT_DIR + 2] - xp * B[CK_SAT_DIR + 3]) > 0.0f;
-    const bool gt_lo = nn ? (lo_neg | c_lo) : (lo_neg & c_lo);
-    const bool gt_hi = nn ? (hi_neg | c_hi) : (hi_neg & c_hi);
+    const bool crossm = (yp * d.mid_c - xp * d.mid_s) > 0.0f;
+    const bool upper = nn ? (d.mid_neg | crossm) : (d.mid_neg & crossm);
+    const bool c_lo = (yp * d.lo_c - xp * d.lo_s) > 0.0f;
+    const bool c_hi = (yp * d.hi_c - xp * d.hi_s) > 0.0f;
+    const bool gt_lo = nn ? (d.lo_neg | c_lo) : (d.lo_neg & c_lo);
+    const bool gt_hi = nn ? (d.hi_neg | c_hi) : (d.hi_neg & c_hi);
     const bool ext = upper ^ (upper ? gt_hi : gt_lo);
     const int base = (upper ? 8 : 0) + (ext ? 4 : 0);
 
-    float cxs[4], cys[4], r2s[4], hi2s[4], lo2s[4];
-    bool atts[4];
     float clamp_x[4], clamp_y[4], score[4];
     overall = true;
 #pragma unroll
     for (int s = 0; s < 4; ++s) {
-        const float cx = B[CK_CX + base + s];
-        const float cy = B[CK_CY + base + s];
-        const float r = B[CK_CR + base + s];
-        const float r2 = B[CK_CR2 + base + s];
-        const float hi2 = B[CK_CHI2 + base + s];
-        const float lo2 = B[CK_CLO2 + base + s];
-        const bool att = B[CK_ATT + base + s] > 0.5f;
-        const float dx = xp - cx;
-        const float dy = yp - cy;
+        const Circle c = Lay::circle(B, base + s);
+        const float dx = xp - c.cx;
+        const float dy = yp - c.cy;
         const float d2 = dx * dx + dy * dy;
-        const bool inside = d2 <= r2;
-        const bool near = (d2 < hi2) & (d2 > lo2);
-        overall = overall & ((att ? inside : !inside) | near);
+        const bool inside = d2 <= c.r2;
+        const bool near = (d2 < c.hi2) & (d2 > c.lo2);
+        overall = overall & ((c.att ? inside : !inside) | near);
         const bool deg = d2 < P.margin2;
         const float rinv = rsqrtf(deg ? 1.0f : d2);
         const float mag = d2 * rinv;
-        const float scale = r * rinv;
-        clamp_x[s] = cx + (deg ? 1.0f : dx) * scale;
-        clamp_y[s] = cy + (deg ? 0.0f : dy) * scale;
-        score[s] = (r - mag) * (r - mag);
-        cxs[s] = cx;
-        cys[s] = cy;
-        r2s[s] = r2;
-        hi2s[s] = hi2;
-        lo2s[s] = lo2;
-        atts[s] = att;
+        const float scale = c.r * rinv;
+        clamp_x[s] = c.cx + (deg ? 1.0f : dx) * scale;
+        clamp_y[s] = c.cy + (deg ? 0.0f : dy) * scale;
+        score[s] = (c.r - mag) * (c.r - mag);
     }
 
     float best_s2 = P.big, best_x = 0.0f, best_y = 0.0f;
@@ -173,12 +322,13 @@ __device__ __forceinline__ void plane_clamp(const ItemParams& P, const float* B,
 #pragma unroll
         for (int t = 0; t < 4; ++t) {
             if (t == s) continue;  // a clamp lies on its own circumference
-            const float dx = clamp_x[s] - cxs[t];
-            const float dy = clamp_y[s] - cys[t];
+            const Circle c = Lay::circle_again(B, base + t);
+            const float dx = clamp_x[s] - c.cx;
+            const float dy = clamp_y[s] - c.cy;
             const float d2 = dx * dx + dy * dy;
-            const bool inside = d2 <= r2s[t];
-            const bool near = (d2 < hi2s[t]) & (d2 > lo2s[t]);
-            okc = okc & ((atts[t] ? inside : !inside) | near);
+            const bool inside = d2 <= c.r2;
+            const bool near = (d2 < c.hi2) & (d2 > c.lo2);
+            okc = okc & ((c.att ? inside : !inside) | near);
         }
         const float s2 = okc ? score[s] : P.big;
         const bool take = s2 < best_s2;
@@ -188,25 +338,24 @@ __device__ __forceinline__ void plane_clamp(const ItemParams& P, const float* B,
     }
 
     // corner-only tournament (first wins, strict <), merged with the circle
-    // winner once and only for an invalid query
+    // winner once and only for an invalid query; the score is
+    // (((q - (2 pcx) xp) - (2 pcy) yp) + pcx pcx) + pcy pcy
     const float q = xp * xp + yp * yp;
     float c_s2 = 0.0f, c_x = 0.0f, c_y = 0.0f;
 #pragma unroll
     for (int j = 0; j < 10; ++j) {
-        const float pcx = B[CK_CORX + j];
-        const float pcy = B[CK_CORY + j];
-        const bool pok = B[CK_CORV + j] > 0.5f;
-        float s2 = q - 2.0f * pcx * xp - 2.0f * pcy * yp + pcx * pcx + pcy * pcy;
-        s2 = pok ? s2 : P.big;
+        const Corner c = Lay::corner(B, j);
+        float s2 = q - c.tpx * xp - c.tpy * yp + c.pxx + c.pyy;
+        s2 = c.valid ? s2 : P.big;
         if (j == 0) {
             c_s2 = s2;
-            c_x = pcx + 0.0f * xp;
-            c_y = pcy + 0.0f * xp;
+            c_x = c.pcx + 0.0f * xp;
+            c_y = c.pcy + 0.0f * xp;
         } else {
             const bool take = s2 < c_s2;
             c_s2 = take ? s2 : c_s2;
-            c_x = take ? pcx : c_x;
-            c_y = take ? pcy : c_y;
+            c_x = take ? c.pcx : c_x;
+            c_y = take ? c.pcy : c_y;
         }
     }
     const bool take = (!overall) & (c_s2 < best_s2);
@@ -220,6 +369,7 @@ __device__ __forceinline__ void plane_clamp(const ItemParams& P, const float* B,
 
 // ops/distance.py _finish_finding_closest.  `flipped` selects the pi-flip
 // branch, whose raw angle is the angle of direction (-x, -y).
+template <class Lay>
 __device__ __forceinline__ void finish(const ItemParams& P, int l,
                                        const float* B, float x, float y,
                                        float z, float cos_a, float sin_a,
@@ -243,7 +393,7 @@ __device__ __forceinline__ void finish(const ItemParams& P, int l,
     const float yr = (-x) * s1 + y * c1;
     bool was_valid;
     float dxp, dzp;
-    plane_clamp(P, B, xr - P.coxa_len[l], z, was_valid, dxp, dzp);
+    plane_clamp<Lay>(P, B, xr - P.coxa_len[l], z, was_valid, dxp, dzp);
     // alternative boundary: the coxa angular-limit plane
     const bool use_max = angle_gt(ax, ay, dc[4], ds[4], dn[4]);
     const float cl = use_max ? P.cmax_c[l] : P.cmin_c[l];
@@ -263,12 +413,14 @@ __device__ __forceinline__ void finish(const ItemParams& P, int l,
 
 // leg l of the item for one body-frame candidate: the distance pipeline, the
 // displacement back in the world frame, and the crossing test against the
-// item's cell box.  Call only for a candidate that passed the prefilter:
-// both results are gated by it.  Returns ok in bit 0 and crossed in bit 1.
-__device__ __noinline__ unsigned item_leg(const ItemParams& P, int l,
-                                          const float* T, float vx, float vy,
-                                          float vz) {
-    const float* B = T + CK_HDR + l * CK_LEG_BLOCK;
+// item's cell box.  T = the staged row, in layout Lay.  Call only for a
+// candidate that passed the prefilter: both results are gated by it.
+// Returns ok in bit 0 and crossed in bit 1.
+template <class Lay = Staged>
+__device__ __forceinline__ unsigned item_leg(const ItemParams& P, int l,
+                                             const float* T, float vx,
+                                             float vy, float vz) {
+    const float* B = T + CK_HDR + l * Lay::leg_floats;
     // yaw to "as if leg 0", then the coxa frame
     const float x0 = vx * P.ca[l] - vy * P.sa[l];
     const float y = vx * P.sa[l] + vy * P.ca[l];
@@ -283,8 +435,8 @@ __device__ __noinline__ unsigned item_leg(const ItemParams& P, int l,
 
     bool res, resf;
     float dx, dy, dz, fx, fy, fz;
-    finish(P, l, B, x, y, z, cos_a, sin_a, false, res, dx, dy, dz);
-    finish(P, l, B, x, y, z, -cos_a, -sin_a, true, resf, fx, fy, fz);
+    finish<Lay>(P, l, B, x, y, z, cos_a, sin_a, false, res, dx, dy, dz);
+    finish<Lay>(P, l, B, x, y, z, -cos_a, -sin_a, true, resf, fx, fy, fz);
     const float d2d = dx * dx + dy * dy + dz * dz;
     const float d2f = fx * fx + fy * fy + fz * fz;
     const bool use_d = (res == resf) ? (d2d < d2f) : res;
@@ -312,6 +464,14 @@ __device__ __noinline__ unsigned item_leg(const ItemParams& P, int l,
     const bool cross_small = dv2 < T[11];
     const bool crossed = (T[12] > 0.5f) ? cross_big : cross_small;
     return (ok ? 1u : 0u) | (crossed ? 2u : 0u);
+}
+
+// item_leg out of line: the call keeps the leg's registers out of the
+// caller's count.  K6c calls it so, on the table's own layout.
+__device__ __noinline__ unsigned item_leg_call(const ItemParams& P, int l,
+                                               const float* T, float vx,
+                                               float vy, float vz) {
+    return item_leg<TableRow>(P, l, T, vx, vy, vz);
 }
 
 // bitwise OR of `v` over the block; every thread gets the result
@@ -360,21 +520,22 @@ __device__ __forceinline__ int block_sum(int v, unsigned* red) {
 // result bits in a register, a candidate outside the elongated box costs the
 // head only (every output is gated by it), one warp OR, one shared and one
 // global atomic OR a block.  The TPU form's [8, C] tile, its C % 128 and the
-// padding of the item axis to 8 are not carried over.
+// padding of the item axis to 8 are not carried over.  Registers are capped
+// at 128 (two blocks an SM), what the out-of-line item gave it.
 // ---------------------------------------------------------------------------
 
-extern "C" __global__ void __launch_bounds__(CK_BLOCK)
+extern "C" __global__ void __launch_bounds__(CK_BLOCK, 2)
 legmov_item_kernel(const float* __restrict__ tab, const float* __restrict__ gx,
                    const float* __restrict__ gy, const float* __restrict__ gz,
                    long long C, long long slab, int shared_row,
                    int* __restrict__ out_bits,
                    const __grid_constant__ ItemParams P) {
-    __shared__ float T[CK_MAX_W];
+    __shared__ __align__(16) float T[CK_MAX_KW];
     __shared__ unsigned bits_sh;
     const long long item = blockIdx.x;
     const int L = P.n_legs;
-    for (int i = threadIdx.x; i < P.table_width; i += blockDim.x)
-        T[i] = tab[item * P.table_width + i];
+    stage_entries(T, tab + item * P.table_width, CK_KW(L), threadIdx.x,
+                  blockDim.x, nullptr, false);
     if (threadIdx.x == 0) bits_sh = 0u;
     __syncthreads();
 
@@ -389,7 +550,7 @@ legmov_item_kernel(const float* __restrict__ tab, const float* __restrict__ gx,
             continue;
         int rc = 0, cc = 0;
         for (int l = 0; l < L; ++l) {
-            const unsigned r = item_leg(P, l, T, vx, vy, vz);
+            const unsigned r = item_leg<Staged>(P, l, T, vx, vy, vz);
             const bool ok = r & 1u, crossed = (r >> 1) & 1u;
             bits |= (ok ? 1u : 0u) << l;
             bits |= ((ok & !crossed) ? 1u : 0u) << (L + l);
@@ -416,11 +577,12 @@ legmov_item_kernel(const float* __restrict__ tab, const float* __restrict__ gx,
 // cell-sorted foothold arrays from element `cst[ch]`, and carries one role
 // byte per orientation: bits 0-5 the legs whose inflated reach ball meets the
 // chunk's box, bit 6 (V) a shared-valid item is possible there, bit 7 (E) an
-// edge item is possible.  One block walks one cell's queue, so every skip
-// decision is uniform across the block; the running flags live identically in
-// every thread (they only change by block-wide ORs).  The orientation's table
-// row is staged in shared memory when an orientation is first evaluated, with
-// the cell centre and parent-valid written over header slots 4-7.
+// edge item is possible.  One walker walks one cell's queue (a warp in K6a
+// and K6b, a block in K6c), so every skip decision is uniform across it; the
+// running flags live identically in each of its threads (they only change by
+// ORs over the walker).  The orientation's table row is staged in shared
+// memory when an orientation is first evaluated, with the cell centre and
+// parent-valid written over header slots 4-7.
 //
 // Each kernel writes ten words a cell: valid, edge, leaf (leaf only under
 // the shared rule; parent-valid is ORed into valid by the caller under the
@@ -430,6 +592,8 @@ legmov_item_kernel(const float* __restrict__ tab, const float* __restrict__ gx,
 // only ones that cost more than the head).
 // ---------------------------------------------------------------------------
 
+// orientation q's row of the level's [S, W] table as the table holds it,
+// staged by the block
 __device__ __forceinline__ void stage_row(float* T, const float* legtab, int q,
                                           int W, const float* cell, bool pv) {
     __syncthreads();  // nobody still reads the previous row
@@ -442,9 +606,21 @@ __device__ __forceinline__ void stage_row(float* T, const float* legtab, int q,
     __syncthreads();
 }
 
+// the same in the kernels' layout, staged by one warp for itself
+__device__ __forceinline__ void stage_row_warp(float* T, const ItemParams& P,
+                                               const float* legtab, int q,
+                                               const float* cell, bool pv,
+                                               int lane) {
+    __syncwarp();  // no lane still reads the previous row
+    stage_entries(T, legtab + (long long)q * P.table_width, CK_KW(P.n_legs),
+                  lane, 32, cell, pv);
+    __syncwarp();
+}
+
 __device__ __forceinline__ void write_out(int* out, long long cell, int v,
-                                          int e, int lf, const int* a) {
-    if (threadIdx.x == 0) {
+                                          int e, int lf, const int* a,
+                                          bool lead) {
+    if (lead) {
         int* o = out + cell * CK_OUT_WORDS;
         o[0] = v;
         o[1] = e;
@@ -470,12 +646,75 @@ __device__ __forceinline__ unsigned chunk_leg_bits(
         work += legs;
         for (int l = 0; l < L; ++l) {
             if (!((m >> l) & 1u)) continue;
-            const unsigned r = item_leg(P, l, T, vx, vy, vz);
+            const unsigned r = item_leg_call(P, l, T, vx, vy, vz);
             const bool ok = r & 1u, crossed = (r >> 1) & 1u;
             bits |= (ok ? 1u : 0u) << l;
             bits |= ((ok & !crossed) ? 1u : 0u) << (L + l);
             bits |= ((ok | crossed) ? 1u : 0u) << (2 * L + l);
         }
+    }
+    return bits;
+}
+
+// Full warps through the leg pipeline.  The warp scans elements [0, len) of
+// a chunk 32 at a time; `pass(c)` says whether element c goes on, and each
+// lane whose element does writes c into the warp's ring (a ballot gives its
+// slot).  Whenever the ring holds 32, every lane takes one and runs
+// `take(c)`; the rest are taken once at the end.  Call with the whole warp.
+template <class Pass, class Take>
+__device__ __forceinline__ void compact_walk(int* ring, int len, int lane,
+                                             Pass pass, Take take) {
+    const unsigned below = (1u << lane) - 1u;
+    int head = 0, cnt = 0;
+    for (int base = 0; base < len; base += 32) {
+        const int c = base + lane;
+        const bool p = c < len && pass(c);
+        const unsigned bal = __ballot_sync(CK_FULL, p);
+        if (p) ring[(head + cnt + __popc(bal & below)) & (CK_RING - 1)] = c;
+        cnt += __popc(bal);
+        if (cnt >= 32) {
+            __syncwarp();
+            take(ring[(head + lane) & (CK_RING - 1)]);
+            head = (head + 32) & (CK_RING - 1);
+            cnt -= 32;
+            __syncwarp();  // the slots just read may be written next
+        }
+    }
+    __syncwarp();
+    if (lane < cnt) take(ring[(head + lane) & (CK_RING - 1)]);
+    __syncwarp();
+}
+
+// element e, which passed the head under the staged row T: the head again,
+// then the masked legs.  Per-leg rule: bit l any ok, L + l ok & !crossed,
+// 2L + l ok | crossed.  Shared rule: bit 0 valid ((rc >= k) | pv), bit 1
+// edge (cc > L - k), bit 2 valid & !edge.
+__device__ __forceinline__ unsigned item_legs(const ItemParams& P,
+                                              const float* T, unsigned m,
+                                              bool shared, bool pv,
+                                              const float* xs, const float* ys,
+                                              const float* zs, long long e,
+                                              int& work) {
+    const int L = P.n_legs;
+    float vx, vy, vz;
+    item_head(T, xs[e], ys[e], zs[e], vx, vy, vz);
+    work += __popc(m);
+    unsigned bits = 0u;
+    int rc = 0, cc = 0;
+    for (int l = 0; l < L; ++l) {
+        if (!((m >> l) & 1u)) continue;
+        const unsigned r = item_leg<Staged>(P, l, T, vx, vy, vz);
+        const bool ok = r & 1u, crossed = (r >> 1) & 1u;
+        rc += ok ? 1 : 0;
+        cc += crossed ? 1 : 0;
+        bits |= (ok ? 1u : 0u) << l;
+        bits |= ((ok & !crossed) ? 1u : 0u) << (L + l);
+        bits |= ((ok | crossed) ? 1u : 0u) << (2 * L + l);
+    }
+    if (shared) {
+        const bool iv = (rc >= P.k) | pv;
+        const bool ie = cc > L - P.k;
+        bits = (iv ? 1u : 0u) | (ie ? 2u : 0u) | ((iv & !ie) ? 4u : 0u);
     }
     return bits;
 }
@@ -499,12 +738,36 @@ __device__ __forceinline__ unsigned chunk_leg_bits(
 // Bound on this card: the work is the queue's: per element of an evaluated
 // (chunk, orientation) 12 bytes (from L2 after the first orientation) and 39
 // operations, plus 860 per masked leg for an element inside the cell's
-// elongated box.  Operations bound it.  No S-fold unrolled queue exists in
-// memory: the loop reads the [C, CH] chunk grid and the [C, CH, S] role bytes
-// in place.
+// elongated box.  Operations bound it, by two orders of magnitude.  The
+// bound counts a fused multiply-add as two operations at the card's 67
+// TFLOP/s, and the build forbids the fusion (the flags must be the plain
+// version's bits), so about half of the bound is the most this kernel can
+// reach.
+//
+// What holds it back is instruction issue: beside its arithmetic the leg
+// pipeline issues about as many compares, selects and loads (phase 1 of
+// chip_smoke.py prints each kernel's instruction mix).
+//
+// Design.  Occupancy: one warp walks one cell, in a block of its own, so a
+// block retires with its cell (a batch's cells differ in work many times
+// over).  __launch_bounds__(32, 16) caps it at 128 registers, 16 warps an
+// SM: caps for 24 or 32 warps spill and ran 16-17 % slower.  (The form with
+// a block of 256 threads a cell held 149 registers: one block, 8 warps, an
+// SM.)  Barriers: none of the block; a chunk's vote is one __reduce_or_sync
+// of the warp.
+// Divergence: about half of a chunk's elements pass the elongated-box head;
+// those go through the warp's ring (compact_walk), so the leg pipelines run
+// on full warps and not on the lanes that happened to pass, and the head is
+// recomputed from the element (39 operations against 860 a leg).
+// Instructions: the warp stages its table row in the kernels' layout (912 or
+// 1,360 floats: a circle or corner in two 16-byte loads, where the table's
+// own layout takes seven or three of 4 bytes) in dynamic shared memory when
+// it reaches an orientation, and stops once nothing it walks can change a
+// flag.  No S-fold unrolled queue exists in memory: the loop reads the
+// [C, CH] chunk grid and the [C, CH, S] role bytes in place.
 // ---------------------------------------------------------------------------
 
-extern "C" __global__ void __launch_bounds__(CK_BLOCK)
+extern "C" __global__ void __launch_bounds__(32, 16)
 legmov_cell_quat_major_kernel(
     const int* __restrict__ cst, const int* __restrict__ cln,
     const unsigned char* __restrict__ role, const int* __restrict__ tot,
@@ -512,9 +775,11 @@ legmov_cell_quat_major_kernel(
     const float* __restrict__ xs, const float* __restrict__ ys,
     const float* __restrict__ zs, int* __restrict__ out, long long CH, int S,
     int shared, const __grid_constant__ ItemParams P) {
-    __shared__ float T[CK_MAX_W];
-    __shared__ unsigned red[CK_WARPS];
+    extern __shared__ __align__(16) unsigned char smem[];
+    const int lane = threadIdx.x;
     const long long cell = blockIdx.x;
+    float* T = reinterpret_cast<float*>(smem);
+    int* ring = reinterpret_cast<int*>(T + CK_KW(P.n_legs));
     const int L = P.n_legs, k = P.k;
     const unsigned Lmask = (1u << L) - 1u;
     const float* ci = cellinfo + cell * 4;
@@ -529,7 +794,9 @@ legmov_cell_quat_major_kernel(
     unsigned run = 0u;
     int a[7] = {0, 0, 0, 0, 0, 0, 0};
     int work = 0;
-    for (int q = 0; q < S; ++q) {
+    // a decided cell (per-leg rule) or one with all three flags (shared
+    // rule: acc2 stays false under the per-leg rule) has nothing left to do
+    for (int q = 0; q < S && !dec && !(acc0 & acc1 & acc2); ++q) {
         bool staged = false;
         for (long long ch = 0; ch < n; ++ch) {
             const unsigned rb = rl[ch * S + q];
@@ -549,7 +816,7 @@ legmov_cell_quat_major_kernel(
             }
             if (useful && len > 0) {
                 if (!staged) {
-                    stage_row(T, legtab, q, P.table_width, ci, pv);
+                    stage_row_warp(T, P, legtab, q, ci, pv, lane);
                     staged = true;
                 }
                 const int legs = __popc(m);
@@ -560,35 +827,25 @@ legmov_cell_quat_major_kernel(
                 a[4] += len;
                 a[5] += len * legs;
                 const long long start = st[ch];
-                if (shared) {
-                    unsigned bits = 0u;
-                    for (int c = threadIdx.x; c < len; c += blockDim.x) {
+                unsigned bits = 0u;
+                compact_walk(
+                    ring, len, lane,
+                    [&](int c) {
                         float vx, vy, vz;
-                        if (!item_head(T, xs[start + c], ys[start + c],
-                                       zs[start + c], vx, vy, vz))
-                            continue;
-                        work += legs;
-                        int rc = 0, cc = 0;
-                        for (int l = 0; l < L; ++l) {
-                            if (!((m >> l) & 1u)) continue;
-                            const unsigned r = item_leg(P, l, T, vx, vy, vz);
-                            const bool ok = r & 1u, crossed = (r >> 1) & 1u;
-                            rc += ok ? 1 : 0;
-                            cc += crossed ? 1 : 0;
-                        }
-                        const bool iv = (rc >= k) | pv;
-                        const bool ie = cc > L - k;
-                        bits |= (iv ? 1u : 0u) | (ie ? 2u : 0u) |
-                                ((iv & !ie) ? 4u : 0u);
-                    }
-                    bits = block_or(bits, red);
+                        return item_head(T, xs[start + c], ys[start + c],
+                                         zs[start + c], vx, vy, vz);
+                    },
+                    [&](int c) {
+                        bits |= item_legs(P, T, m, shared, pv, xs, ys, zs,
+                                          start + c, work);
+                    });
+                bits = __reduce_or_sync(CK_FULL, bits);
+                if (shared) {
                     acc0 |= (bits & 1u) != 0u;
                     acc1 |= (bits & 2u) != 0u;
                     acc2 |= (bits & 4u) != 0u;
                 } else {
-                    run |= block_or(
-                        chunk_leg_bits(P, T, m, xs, ys, zs, start, len, work),
-                        red);
+                    run |= bits;
                 }
             }
             if (!shared && ch == n - 1 && !dec) {
@@ -604,8 +861,8 @@ legmov_cell_quat_major_kernel(
             }
         }
     }
-    a[6] = block_sum(work, red);
-    write_out(out, cell, acc0, acc1, acc2, a);
+    a[6] = (int)__reduce_add_sync(CK_FULL, (unsigned)work);
+    write_out(out, cell, acc0, acc1, acc2, a, lane == 0);
 }
 
 // ---------------------------------------------------------------------------
@@ -619,23 +876,31 @@ legmov_cell_quat_major_kernel(
 // chunk an orientation is skipped likewise.  The leg chain: once edge is
 // settled and the cell has no valid parent, a chunk is scanned for valid/leaf
 // only, so after leg l the remaining legs run only if some candidate can
-// still reach k with every masked leg left (a block-wide vote on rc >= k -
-// rem); a partially chained chunk contributes nothing, because its counts are
-// understated and edge is already set.
+// still reach k with every masked leg left (a vote on rc >= k - rem over the
+// whole chunk); a partially chained chunk contributes nothing, because its
+// counts are understated and edge is already set.
 //
 // Bound on this card: as K6a, over the (chunk, orientation, leg) triples this
 // walk evaluates; a chunk's elements come from device memory once and from
-// L1/L2 for the other orientations and legs.  Operations bound it.
+// L1/L2 for the other orientations and legs.  Operations bound it, and as in
+// K6a the forbidden fused multiply-add leaves about half of that bound
+// within reach.
 //
-// Design: leg-outer, candidate-inner inside an (chunk, orientation) item,
-// because the vote between legs is over the whole chunk.  A thread keeps the
-// counts of its own candidates in one byte each of dynamic shared memory
-// (reach count bits 0-2, crossing count bits 3-5, prefilter bit 7) and
-// recomputes the head per leg from the cached coordinates, so any window up
-// to 40,960 elements works without per-thread arrays.
+// Design.  Occupancy and instructions: as K6a, one warp a cell in a block of
+// its own, 16 warps an SM, the row in the kernels' layout (the form with a
+// block of 256 threads a cell held 128 registers and spilled).  Barriers:
+// leg-outer, candidate-inner inside a (chunk, orientation) item, because the
+// vote between legs is over the whole chunk; the vote is one __any_sync of
+// the warp, not a barrier of the block.
+// The block's dynamic shared memory holds the table row, the ring, and one
+// byte per chunk element (reach count bits 0-2, crossing count bits 3-5, head
+// bit 7), so any window up to 40,960 elements works without per-thread
+// arrays.  Divergence: each leg's pass takes the elements whose head bit is
+// set through the ring (compact_walk), so the pipelines run on full warps;
+// the head is recomputed from the element.
 // ---------------------------------------------------------------------------
 
-extern "C" __global__ void __launch_bounds__(CK_BLOCK)
+extern "C" __global__ void __launch_bounds__(32, 16)
 legmov_cell_shared_kernel(
     const int* __restrict__ cst, const int* __restrict__ cln,
     const unsigned char* __restrict__ role, const int* __restrict__ tot,
@@ -643,10 +908,12 @@ legmov_cell_shared_kernel(
     const float* __restrict__ xs, const float* __restrict__ ys,
     const float* __restrict__ zs, int* __restrict__ out, long long CH, int S,
     const __grid_constant__ ItemParams P) {
-    extern __shared__ unsigned char cnt[];
-    __shared__ float T[CK_MAX_W];
-    __shared__ unsigned red[CK_WARPS];
+    extern __shared__ __align__(16) unsigned char smem[];
+    const int lane = threadIdx.x;
     const long long cell = blockIdx.x;
+    float* T = reinterpret_cast<float*>(smem);
+    int* ring = reinterpret_cast<int*>(T + CK_KW(P.n_legs));
+    unsigned char* cnt = reinterpret_cast<unsigned char*>(ring + CK_RING);
     const int L = P.n_legs, k = P.k;
     const float* ci = cellinfo + cell * 4;
     const bool pv = ci[3] > 0.5f;
@@ -659,13 +926,13 @@ legmov_cell_shared_kernel(
     bool acc0 = false, acc1 = false, acc2 = false;
     int a[7] = {0, 0, 0, 0, 0, 0, 0};
     int work = 0;
-    for (long long ch = 0; ch < n; ++ch) {
+    // with all three flags set no chunk is useful any more
+    for (long long ch = 0; ch < n && !(acc0 & acc1 & acc2); ++ch) {
         const int len = ln[ch];
         // does any orientation's byte carry V / E
         unsigned any = 0u;
-        for (int q = threadIdx.x; q < S; q += blockDim.x)
-            any |= rl[ch * S + q] >> 6;
-        any = block_or(any, red);
+        for (int q = lane; q < S; q += 32) any |= rl[ch * S + q] >> 6;
+        any = __reduce_or_sync(CK_FULL, any);
         const bool vany = any & 1u, eany = (any >> 1) & 1u;
         const bool useful =
             ((vany | pv) & !(acc0 & acc2)) | (eany & !acc1);
@@ -681,8 +948,8 @@ legmov_cell_shared_kernel(
             if (!uq) continue;
             a[1] += 1;
             a[4] += len;
-            stage_row(T, legtab, q, P.table_width, ci, pv);
-            for (int c = threadIdx.x; c < len; c += blockDim.x) {
+            stage_row_warp(T, P, legtab, q, ci, pv, lane);
+            for (int c = lane; c < len; c += 32) {
                 float vx, vy, vz;
                 cnt[c] = item_head(T, xs[start + c], ys[start + c],
                                    zs[start + c], vx, vy, vz)
@@ -691,47 +958,52 @@ legmov_cell_shared_kernel(
             }
             const bool chain_off = (!acc1) | pv;
             bool viable = true;
-            int rcmax = 0;
+            int rcmax = 0;  // rc only grows: the lanes' maxima give the chunk's
             for (int l = 0; l < L; ++l) {
                 if (((m >> l) & 1u) && (chain_off || viable)) {
                     a[2] += 1;
                     a[5] += len;
-                    for (int c = threadIdx.x; c < len; c += blockDim.x) {
-                        const unsigned b = cnt[c];
-                        if (!(b & 0x80u)) continue;
-                        work += 1;
-                        float vx, vy, vz;
-                        item_head(T, xs[start + c], ys[start + c],
-                                  zs[start + c], vx, vy, vz);
-                        const unsigned r = item_leg(P, l, T, vx, vy, vz);
-                        const bool ok = r & 1u, crossed = (r >> 1) & 1u;
-                        const int rc = (int)(b & 7u) + (ok ? 1 : 0);
-                        const int cc = (int)((b >> 3) & 7u) + (crossed ? 1 : 0);
-                        cnt[c] = (unsigned char)(0x80u | rc | (cc << 3));
-                        rcmax = rc > rcmax ? rc : rcmax;
-                    }
+                    compact_walk(
+                        ring, len, lane,
+                        [&](int c) { return (cnt[c] & 0x80u) != 0u; },
+                        [&](int c) {
+                            work += 1;
+                            const long long e = start + c;
+                            float vx, vy, vz;
+                            item_head(T, xs[e], ys[e], zs[e], vx, vy, vz);
+                            const unsigned r =
+                                item_leg<Staged>(P, l, T, vx, vy, vz);
+                            const unsigned b = cnt[c];
+                            const int rc = (int)(b & 7u) + (int)(r & 1u);
+                            const int cc =
+                                (int)((b >> 3) & 7u) + (int)((r >> 1) & 1u);
+                            cnt[c] = (unsigned char)(0x80u | rc | (cc << 3));
+                            rcmax = rc > rcmax ? rc : rcmax;
+                        });
                 }
-                if (l < L - 1) {
+                if (!chain_off && l < L - 1) {
                     const int rem = __popc(m >> (l + 1));
-                    viable = __syncthreads_or(rcmax >= k - rem) != 0;
+                    viable = __any_sync(CK_FULL, rcmax >= k - rem);
                 }
             }
+            // compact_walk ended in __syncwarp, and without a leg pass each
+            // lane reads back its own bytes
             unsigned bits = 0u;
-            for (int c = threadIdx.x; c < len; c += blockDim.x) {
+            for (int c = lane; c < len; c += 32) {
                 const unsigned b = cnt[c];
                 if (!(b & 0x80u)) continue;
                 const bool iv = ((int)(b & 7u) >= k) | pv;
                 const bool ie = (int)((b >> 3) & 7u) > L - k;
                 bits |= (iv ? 1u : 0u) | (ie ? 2u : 0u) | ((iv & !ie) ? 4u : 0u);
             }
-            bits = block_or(bits, red);
+            bits = __reduce_or_sync(CK_FULL, bits);
             acc0 |= (bits & 1u) != 0u;
             acc1 |= (bits & 2u) != 0u;
             acc2 |= (bits & 4u) != 0u;
         }
     }
-    a[6] = block_sum(work, red);
-    write_out(out, cell, acc0, acc1, acc2, a);
+    a[6] = (int)__reduce_add_sync(CK_FULL, (unsigned)work);
+    write_out(out, cell, acc0, acc1, acc2, a, lane == 0);
 }
 
 // ---------------------------------------------------------------------------
@@ -748,9 +1020,13 @@ legmov_cell_shared_kernel(
 // No chunk is skipped as a whole.
 //
 // Bound on this card: as K6a over the triples this walk evaluates.
+//
+// Design: one block of 256 threads a cell, with block barriers; the row is
+// staged as the table holds it (TableRow) and the item called out of line.
+// Staged in the kernels' layout instead, the same walk ran 14 % slower.
 // ---------------------------------------------------------------------------
 
-extern "C" __global__ void __launch_bounds__(CK_BLOCK)
+extern "C" __global__ void __launch_bounds__(CK_BLOCK, 2)
 legmov_cell_cm_perleg_kernel(
     const int* __restrict__ cst, const int* __restrict__ cln,
     const unsigned char* __restrict__ role, const int* __restrict__ tot,
@@ -814,7 +1090,7 @@ legmov_cell_cm_perleg_kernel(
         }
     }
     a[6] = block_sum(work, red);
-    write_out(out, cell, acc0, acc1, false, a);
+    write_out(out, cell, acc0, acc1, false, a, threadIdx.x == 0);
 }
 
 // ---------------------------------------------------------------------------
@@ -833,6 +1109,21 @@ static int sm_count() {
             sms = 132;
     }
     return sms;
+}
+
+// the most dynamic shared memory a block may ask for on this device
+static int smem_optin() {
+    static int bytes = 0;
+    if (bytes == 0) {
+        int dev = 0;
+        if (cudaGetDevice(&dev) != cudaSuccess ||
+            cudaDeviceGetAttribute(&bytes,
+                                   cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                                   dev) != cudaSuccess ||
+            bytes <= 0)
+            bytes = 48 * 1024;
+    }
+    return bytes;
 }
 
 static bool params_ok(const ItemParams* p) {
@@ -866,6 +1157,20 @@ static bool cell_args_ok(long long CH, int S, const ItemParams* p) {
     return params_ok(p) && CH >= 0 && S >= 1 && S <= CK_MAX_QUATS;
 }
 
+// dynamic shared memory of a K6a / K6b block: the warp's staged row and
+// ring, and for K6b one byte per chunk element
+static size_t cell_block_bytes(int n_legs, int window, bool counts) {
+    const size_t row = (size_t)CK_KW(n_legs) * 4 + CK_RING * 4;
+    return row + (counts ? ((size_t)window + 15) / 16 * 16 : 0);
+}
+
+static cudaError_t allow_smem(const void* fn, size_t bytes) {
+    if (bytes > (size_t)smem_optin()) return cudaErrorInvalidValue;
+    if (bytes <= 48 * 1024) return cudaSuccess;
+    return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)bytes);
+}
+
 extern "C" int legmov_cell_quat_major(
     const int* cst, const int* cln, const unsigned char* role, const int* tot,
     const float* cellinfo, const float* legtab, const float* xs,
@@ -873,8 +1178,13 @@ extern "C" int legmov_cell_quat_major(
     int S, int window, int shared, const ItemParams* params, void* stream) {
     (void)window;
     if (C <= 0) return 0;
-    if (!cell_args_ok(CH, S, params)) return (int)cudaErrorInvalidValue;
-    legmov_cell_quat_major_kernel<<<(unsigned)C, CK_BLOCK, 0,
+    if (!cell_args_ok(CH, S, params) || C > 0x7fffffffLL)
+        return (int)cudaErrorInvalidValue;
+    const size_t bytes = cell_block_bytes(params->n_legs, 0, false);
+    const cudaError_t e =
+        allow_smem((const void*)legmov_cell_quat_major_kernel, bytes);
+    if (e != cudaSuccess) return (int)e;
+    legmov_cell_quat_major_kernel<<<(unsigned)C, 32, bytes,
                                     (cudaStream_t)stream>>>(
         cst, cln, role, tot, cellinfo, legtab, xs, ys, zs, out, CH, S, shared,
         *params);
@@ -887,10 +1197,14 @@ extern "C" int legmov_cell_shared(
     const float* ys, const float* zs, int* out, long long C, long long CH,
     int S, int window, const ItemParams* params, void* stream) {
     if (C <= 0) return 0;
-    if (!cell_args_ok(CH, S, params) || window < 1 || window > CK_MAX_WINDOW)
+    if (!cell_args_ok(CH, S, params) || C > 0x7fffffffLL ||
+        window < 1 || window > CK_MAX_WINDOW)
         return (int)cudaErrorInvalidValue;
-    const size_t bytes = ((size_t)window + 15) / 16 * 16;
-    legmov_cell_shared_kernel<<<(unsigned)C, CK_BLOCK, bytes,
+    const size_t bytes = cell_block_bytes(params->n_legs, window, true);
+    const cudaError_t e =
+        allow_smem((const void*)legmov_cell_shared_kernel, bytes);
+    if (e != cudaSuccess) return (int)e;
+    legmov_cell_shared_kernel<<<(unsigned)C, 32, bytes,
                                 (cudaStream_t)stream>>>(
         cst, cln, role, tot, cellinfo, legtab, xs, ys, zs, out, CH, S, *params);
     return (int)cudaGetLastError();
@@ -916,5 +1230,44 @@ extern "C" int legmov_cell_layout(int* param_bytes, int* header,
     *header = CK_HDR;
     *leg_block = CK_LEG_BLOCK;
     *out_words = CK_OUT_WORDS;
+    return 0;
+}
+
+// How kernel `form` (0 K5, 1 K6a, 2 K6b, 3 K6c) is launched for `n_legs`
+// legs and chunks of `window` elements: registers a thread, local memory a
+// thread (spills and stack), threads and shared memory a block, and the
+// blocks an SM holds at once.
+extern "C" int legmov_cell_occupancy(int form, int n_legs, int window,
+                                     int* regs, int* local_bytes,
+                                     int* threads, int* smem_bytes,
+                                     int* blocks_per_sm) {
+    const void* fn = nullptr;
+    size_t bytes = 0;
+    int thr = CK_BLOCK;
+    if (form == 1 || form == 2) {
+        thr = 32;
+        if (n_legs < 1 || n_legs > CK_MAX_LEGS) return (int)cudaErrorInvalidValue;
+        bytes = cell_block_bytes(n_legs, window, form == 2);
+        fn = form == 1 ? (const void*)legmov_cell_quat_major_kernel
+                       : (const void*)legmov_cell_shared_kernel;
+    } else if (form == 0) {
+        fn = (const void*)legmov_item_kernel;
+    } else if (form == 3) {
+        fn = (const void*)legmov_cell_cm_perleg_kernel;
+    } else {
+        return (int)cudaErrorInvalidValue;
+    }
+    cudaFuncAttributes fa;
+    cudaError_t e = cudaFuncGetAttributes(&fa, fn);
+    if (e == cudaSuccess) e = allow_smem(fn, bytes);
+    int nb = 0;
+    if (e == cudaSuccess)
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&nb, fn, thr, bytes);
+    if (e != cudaSuccess) return (int)e;
+    *regs = fa.numRegs;
+    *local_bytes = (int)fa.localSizeBytes;
+    *threads = thr;
+    *smem_bytes = (int)(bytes + fa.sharedSizeBytes);
+    *blocks_per_sm = nb;
     return 0;
 }

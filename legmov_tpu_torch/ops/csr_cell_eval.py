@@ -31,10 +31,11 @@ ops/csr_grid.py, shaped for cells instead of poses:
 * the per-orientation workspace tables are one ``[S, W]`` table per level
   (:func:`level_tables`): they depend only on the orientation, not the cell.
 
-Three kernels (source ``csrc/cell_kernels.cu``) walk the queues, one block a
-cell: quat-major (:func:`cell_eval_quat_major`, the per-leg rule's default),
-chunk-major shared (:func:`cell_eval_shared`) and chunk-major per-leg
-(:func:`cell_eval_cm_perleg`).  Beside each stands its plain PyTorch version
+Three kernels (source ``csrc/cell_kernels.cu``) walk the queues:
+quat-major (:func:`cell_eval_quat_major`, the per-leg rule's default) and
+chunk-major shared (:func:`cell_eval_shared`) one warp a cell, and
+chunk-major per-leg (:func:`cell_eval_cm_perleg`) one block a cell.  Beside
+each stands its plain PyTorch version
 (``*_plain``), which walks the queue in the kernel's order with its skip
 rules and work counters, vectorised over cells.  A wrapper runs the plain
 version for CPU tensors only; for a CUDA tensor it launches or raises, and

@@ -589,6 +589,28 @@ def item_params(consts, k: int) -> _ItemParams:
 _bound = None
 
 
+def signatures() -> dict:
+    """The C functions of ``csrc/cell_kernels.cu`` -> their argument types
+    (each returns an int: 0 or a CUDA error)."""
+    vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    pp = ctypes.POINTER(_ItemParams)
+    # chunk starts, lengths, role bytes, tot, cellinfo, legtab, xs, ys, zs
+    queue = [vp] * 9
+    return {
+        # tab, gx, gy, gz, P, C, shared_row, out_bits, params, stream
+        "legmov_item": [vp, vp, vp, vp, ll, ll, ci, vp, pp, vp],
+        # queue, out, C, CH, S, window, shared, params, stream
+        "legmov_cell_quat_major": queue + [vp, ll, ll, ci, ci, ci, pp, vp],
+        # queue, out, C, CH, S, window, params, stream
+        "legmov_cell_shared": queue + [vp, ll, ll, ci, ci, pp, vp],
+        # queue, out, C, CH, S, window, params, stream
+        "legmov_cell_cm_perleg": queue + [vp, ll, ll, ci, ci, pp, vp],
+        "legmov_cell_layout": [ctypes.POINTER(ci)] * 4,
+        # form, legs, window, then five results
+        "legmov_cell_occupancy": [ci, ci, ci] + [ctypes.POINTER(ci)] * 5,
+    }
+
+
 def library():
     """The shared library of ``csrc/cell_kernels.cu`` with argument types
     set, checked against the parameter block's size and the table layout."""
@@ -596,21 +618,11 @@ def library():
     if _bound is not None:
         return _bound
     lib = _build.load_library("cell_kernels")
-    vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    pp = ctypes.POINTER(_ItemParams)
-    lib.legmov_item.restype = ci
-    lib.legmov_item.argtypes = [vp, vp, vp, vp, ll, ll, ci, vp, pp, vp]
-    for name in ("legmov_cell_quat_major", "legmov_cell_shared",
-                 "legmov_cell_cm_perleg"):
+    for name, argtypes in signatures().items():
         fn = getattr(lib, name)
-        fn.restype = ci
-        # chunk starts, lengths, role bytes, tot, cellinfo, legtab, xs, ys,
-        # zs, out, C, CH, S, window, [shared,] params, stream
-        fn.argtypes = [vp] * 10 + [ll, ll, ci, ci] + (
-            [ci] if name == "legmov_cell_quat_major" else []) + [pp, vp]
-    lib.legmov_cell_layout.restype = ci
-    lib.legmov_cell_layout.argtypes = [ctypes.POINTER(ci)] * 4
-    got = [ci() for _ in range(4)]
+        fn.restype = ctypes.c_int
+        fn.argtypes = argtypes
+    got = [ctypes.c_int() for _ in range(4)]
     lib.legmov_cell_layout(*[ctypes.byref(g) for g in got])
     want = (ctypes.sizeof(_ItemParams), _HDR, LEG_BLOCK, OUT_WORDS)
     if tuple(g.value for g in got) != want:
@@ -625,6 +637,26 @@ def library():
 #: int32 words per cell the cell-evaluation kernels write: flags
 #: (valid, edge, leaf), the three work counters, the four element counters
 OUT_WORDS = 10
+
+#: the kernels of ``csrc/cell_kernels.cu``, as :func:`occupancy` names them
+KERNEL_FORMS = ("item", "cell_quat_major", "cell_shared", "cell_cm_perleg")
+
+
+def occupancy(form: str, n_legs: int, window: int = 0) -> dict:
+    """How the card holds kernel ``form`` (one of :data:`KERNEL_FORMS`)
+    launched for ``n_legs`` legs and chunks of ``window`` elements:
+    registers and local memory (spills and stack) a thread, threads and
+    shared memory a block, blocks and warps an SM."""
+    lib = library()
+    got = [ctypes.c_int() for _ in range(5)]
+    err = lib.legmov_cell_occupancy(KERNEL_FORMS.index(form), n_legs,
+                                    window, *[ctypes.byref(g) for g in got])
+    if err != 0:
+        raise RuntimeError(f"legmov_cell_occupancy failed: CUDA error {err}")
+    regs, local, threads, smem, blocks = (g.value for g in got)
+    return {"registers": regs, "local_bytes": local, "threads": threads,
+            "shared_bytes": smem, "blocks_per_sm": blocks,
+            "warps_per_sm": blocks * threads // 32}
 
 
 def stream():

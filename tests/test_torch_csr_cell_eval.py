@@ -261,6 +261,35 @@ def test_flags_do_not_depend_on_the_skips(shared):
         assert int(with_skips[:, 8].sum()) < int(without[:, 8].sum())
 
 
+@pytest.mark.parametrize("shared", [True, False])
+def test_words_do_not_depend_on_the_order_of_the_cells(shared):
+    """Each kernel walks a cell alone (a warp or a block of its own), so a
+    cell's words may not depend on the other cells of the batch: the plain
+    forms over a permuted queue, scattered back, give the flags and all 7
+    counters of every cell in queue order."""
+    fh, quats, centers, pv = _scene(seed=6)
+    k = 3
+    robot = trobot.get_moonbot_robot()
+    lv = _Level(robot, fh, quats)
+    q = lv.queue(centers, k, shared)
+    o = torch.from_numpy(np.random.default_rng(6).permutation(CELLS))
+    consts = cmd.dist_leg_constants(robot)
+    cellinfo = torch.cat([_t(centers), _t(pv)[:, None].float()], dim=1)
+    permuted = cce.CellQueue(q.cst[o], q.cln[o], q.role[o], q.tot[o], q.over)
+    tail = (lv.legtab, lv.csr.xs, lv.csr.ys, lv.csr.zs, consts, k)
+    forms = ([lambda qq, ci: cce.cell_eval_shared_plain(qq, ci, *tail)]
+             if shared else [])
+    forms.append(lambda qq, ci: cce.cell_eval_quat_major_plain(
+        qq, ci, *tail, shared))
+    for form in forms:
+        want = form(q, cellinfo)
+        got = form(permuted, cellinfo[o])
+        back = torch.empty_like(got)
+        back[o] = got
+        assert torch.equal(back, want)
+        assert want[:, 3].sum() > 0
+
+
 def test_hexapod_shared_four_of_six_equals_jax():
     """L = 6: six leg bits per role byte, 3 x 6 run bits per orientation."""
     fh, quats, centers, pv = _scene(seed=2)

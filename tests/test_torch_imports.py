@@ -179,6 +179,35 @@ def test_parameter_blocks_are_packed():
         assert re.search(rf"#define {name} {value}\b", src), name
 
 
+def test_cell_library_signatures_match_the_c_launchers():
+    """The ctypes argument lists of ``cuda_multileg_dist.signatures`` have
+    the C functions' parameters, one for one: a pointer for a pointer, a
+    64-bit int for ``long long``, an int for ``int``."""
+    import ctypes
+
+    from legmov_tpu_torch.ops import cuda_multileg_dist as cmd
+
+    with open(os.path.join(PKG, "csrc", "cell_kernels.cu")) as f:
+        src = f.read()
+    found = dict(re.findall(r'extern "C" int (legmov_\w+)\(([^)]*)\)', src))
+    sigs = cmd.signatures()
+    assert set(found) == set(sigs)
+    for name, params in found.items():
+        kinds = []
+        for p in params.split(","):
+            p = " ".join(p.split())
+            if "*" in p:
+                kinds.append("pointer")
+            elif p.startswith("long long"):
+                kinds.append(ctypes.c_longlong)
+            else:
+                assert p.startswith("int "), (name, p)
+                kinds.append(ctypes.c_int)
+        want = [t if t in (ctypes.c_longlong, ctypes.c_int) else "pointer"
+                for t in sigs[name]]
+        assert kinds == want, name
+
+
 def test_build_module_is_lazy_and_keyed_by_source(tmp_path, monkeypatch):
     from legmov_tpu_torch.ops import _build
 
