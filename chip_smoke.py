@@ -17,7 +17,8 @@ solvers, the orientation sweep, the plain versions); 6 the map solve at
 10.24 M footholds (hexapod, 32,768 poses, both CSR builds, one chunk held
 against the plain versions and the exhaustive path, the packed orientation
 sweep against the serial one); 7 the multi-leg and CSR window kernels alone
-against their plain versions, and their times; 8 ``cli solve`` on the
+against their plain versions (ragged shapes, legs found before the launch,
+rows found on their first candidates), and their times; 8 ``cli solve`` on the
 prepared directory (the depth-7 moon solve under both rules, the chunk-major
 per-leg evaluator on a batch of it, two hexapod solves, and reduced solves
 whose CSR and dense candidates and whose environment switches must agree;
@@ -26,8 +27,10 @@ the device nowhere in their dispatch, and print their ``dispatch_s``);
 9 the gates of the solve on samples of real batches of its deepest level,
 quadruped and hexapod (every cell kernel form against its plain version,
 counters included, against the dense item kernel and against the eager
-evaluator); 10 the item kernel and the
-three cell kernels alone: special values, and their times on real batches;
+evaluator); 10 the item kernel, its cell driver (special batches, phase 10's
+batch and the largest batch of each dense solve of phase 8, each timed in
+turns with the item kernel's chunk loop that it replaced) and the three cell
+kernels alone: special values, and their times on real batches;
 11 K2's cell kernel on real batches of identity levels 2-6 of the deep
 solves and on special ones: against its plain version and against the
 eager loop with K2's point kernel that it replaced, bit for bit, and its
@@ -35,7 +38,9 @@ time in turns with that loop and beside its bound.
 
 ``--phases 1,8,9,10,11`` runs a subset (1 is always run); ``--quick`` cuts
 phase 8's deep solves to a quarter of the box, for a first look at a new
-kernel.
+kernel; ``--against`` (an earlier ``cell_kernels.cu``, phase 10) and
+``--against-multileg`` (an earlier ``multileg_kernels.cu``, phases 5 and 7)
+time another build's kernels in turns with this tree's on the same inputs.
 
 Output, in order: the card's name and power limit, one line per phase, one
 JSON line ``{"kernels": [...]}`` and, last, one JSON line
@@ -222,6 +227,23 @@ def plain_dist(kd, x, y, z):
 # phases
 # ---------------------------------------------------------------------------
 
+def sass_mix(so):
+    """Each kernel of library ``so``: its SASS instructions and the ten
+    most frequent opcodes (``cuobjdump -sass``)."""
+    cuobjdump = os.path.join(os.path.dirname(_build._find_nvcc()), "cuobjdump")
+    if not os.path.exists(cuobjdump):
+        say("  sass: not measured (no cuobjdump beside nvcc)")
+        return
+    sass = subprocess.run([cuobjdump, "-sass", so], capture_output=True,
+                          text=True).stdout
+    for block in re.split(r"\n\s*Function : ", sass)[1:]:
+        ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+                         r"([A-Z][A-Z0-9_.]+)", block)
+        mix = collections.Counter(o.split(".")[0] for o in ops)
+        say(f"  sass {block.split()[0]}: {len(ops)} instructions; "
+            + ", ".join(f"{k} {v}" for k, v in mix.most_common(10)))
+
+
 def phase_device_and_build():
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -245,20 +267,10 @@ def phase_device_and_build():
                 say("  ptxas:", line.split("function")[1].strip())
             if "registers" in line or "spill" in line.lower() and "0 bytes spill" not in line:
                 say("  ptxas:", line.strip())
-    # the instruction mix of the cell kernels, as the card runs them
-    cuobjdump = os.path.join(os.path.dirname(_build._find_nvcc()), "cuobjdump")
-    if os.path.exists(cuobjdump):
-        sass = subprocess.run(
-            [cuobjdump, "-sass", _build.library_path("cell_kernels")],
-            capture_output=True, text=True).stdout
-        for block in re.split(r"\n\s*Function : ", sass)[1:]:
-            ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?"
-                             r"([A-Z][A-Z0-9_.]+)", block)
-            mix = collections.Counter(o.split(".")[0] for o in ops)
-            say(f"  sass {block.split()[0]}: {len(ops)} instructions; "
-                + ", ".join(f"{k} {v}" for k, v in mix.most_common(10)))
-    else:
-        say("  sass: not measured (no cuobjdump beside nvcc)")
+    # the instruction mix of the cell and multi-leg kernels, as the card
+    # runs them
+    for name in ("cell_kernels", "multileg_kernels"):
+        sass_mix(_build.library_path(name))
     # what the card holds of each cell kernel at once, as it is launched
     # (K6b's shared memory grows with the window; the solver's is 2048)
     occ = {"distance_cells": ck.dist_cells_occupancy()}
@@ -270,7 +282,9 @@ def phase_device_and_build():
         "SM")
     for form in cmd.KERNEL_FORMS:
         for L in (4, 6):
-            o = cmd.occupancy(form, L, 2048)
+            # the cell driver's shared memory grows with the orientations
+            o = cmd.occupancy(form, L, 27 if form.startswith("item_cells")
+                              else 2048)
             occ.setdefault(form, o)
             say(f"  {KERNEL_IDS[form]} ({L} legs): {o['registers']} registers "
                 f"and {o['local_bytes']} B of local memory a thread, "
@@ -542,13 +556,29 @@ MAP_POSES = 32768
 MAP_CHUNK = 2048
 
 
-def run_map(data, *extra, path_name=""):
+def run_map(data, *extra, path_name="", keep=True, count_k3=False):
     """``cli map --dir data --leg m2 *extra`` with the launch counts set to 0
-    just before and read just after: (JSON line, mask, launches).  The
-    kernel time of the run is printed under ``cli map <path_name>``."""
+    just before and read just after: (JSON line, mask, launches, kernel ->
+    summed ms).  The kernel time of the run is printed under ``cli map
+    <path_name>`` (and kept for the kernels line unless ``keep`` is
+    False).  ``count_k3`` counts instead what decides each K3 launch's
+    output and gives the bound to the kept kernel time of ``path_name``:
+    that count holds the card idle between launches, which the events
+    around a launch would take in, so it runs apart from the timed run."""
     cm.multileg_kernel.launches = 0
     cm.csr_window_kernel.launches = 0
     k4_calls = []
+    k3_calls = []
+
+    def keep_k3(real, tab, gx, gy, gz, legs_in, consts, *a, **kw):
+        out = real(tab, gx, gy, gz, legs_in, consts, *a, **kw)
+        if count_k3 and out.is_cuda and out.numel():
+            # what decides this launch's output (a walk of the plain
+            # version's leg bits), counted before the next launch
+            k3_calls.append((cm.multileg_need(tab, gx, gy, gz, consts,
+                                              legs_in), consts,
+                             tab.numel() * 4 + gx.shape[0] * 8, gx.shape))
+        return out
 
     def keep_k4(real, tab, legs_in, starts, lens, masks, xs, ys, zs, consts,
                 *a, **kw):
@@ -564,6 +594,7 @@ def run_map(data, *extra, path_name=""):
 
     buf = io.StringIO()
     with intercepted(cm, "csr_window_kernel", keep_k4), \
+            intercepted(cm, "multileg_kernel", keep_k3), \
             kernel_clock(("multileg", "csr_window")) as recs, \
             contextlib.redirect_stdout(buf):
         cli.main(["map", "--dir", data, "--leg", "m2", *extra])
@@ -582,21 +613,31 @@ def run_map(data, *extra, path_name=""):
         f"{line['seconds']} poses/s {line['poses_per_s']} window "
         f"{line['window']} host syncs {line['host_syncs']} launches K3 "
         f"{launches['multileg']} K4 {launches['csr_window']}")
+    path = f"cli map {path_name}".rstrip()
+    if count_k3:
+        lo3, hi3 = k3_bounds(k3_calls)
+        kept = PATH_TIMES["multileg", path]
+        kept.update(bound_ms=lo3, bound_ms_every_leg=hi3)
+        say(f"    K3's bound on {path}, counted on this run: what decides "
+            f"each launch's output (candidates up to each missing leg's "
+            f"first hit) {lo3:.3f} ms, share {lo3 / kept['ms']:.3f} of the "
+            f"timed run's {kept['ms']:.3f} ms; every leg on every candidate "
+            f"{hi3:.3f} ms")
+        return line, mask, launches, {}
     lo, hi = k4_bounds(k4_calls)
-    report_clock(f"cli map {path_name}".rstrip(), recs,
-                 {"multileg": multileg_bound(make_robot(QUAD_MOUNTS)),
-                  "csr_window": lambda rec: lo})
+    sums = report_clock(path, recs, {"csr_window": lambda rec: lo},
+                        keep=keep)
     if k4_calls:
         say(f"    K4's bound on this path counts the steps serving legs never "
             f"found ({lo:.3f} ms); with every step serving a leg missing at "
             f"launch it is {hi:.3f} ms")
-    return line, mask, launches
+    return line, mask, launches, sums
 
 
 SUB_STRIDE = 16  # every 16th body candidate, for the slow variants
 
 
-def phase_cli_map(data):
+def phase_cli_map(data, others=()):
     """``cli map`` on the phase-2 directory: the default ``prepare`` (65,536
     terrain points, the 50 mm body voxel grid), quadruped m2, k = 4.  Both
     solvers run over every candidate.  The plain versions and the
@@ -604,9 +645,13 @@ def phase_cli_map(data):
     eager code), so they run, through the same command, on a directory that
     holds the same terrain and every 16th candidate."""
     say("phase 5: cli map on the prepared directory (m2 quadruped, k = 4)")
-    _, m_dma, l_dma = run_map(data, path_name="(csr-dma)")
-    _, m_csr, l_csr = run_map(data, "--solver", "csr",
+    _, m_dma, l_dma, _ = run_map(data, path_name="(csr-dma)")
+    _, m_csr, l_csr, _ = run_map(data, "--solver", "csr",
                               path_name="--solver csr")
+    _, m_count, _, _ = run_map(data, "--solver", "csr", keep=False,
+                               path_name="--solver csr", count_k3=True)
+    check(np.array_equal(m_count, m_csr), "csr: the counted run's mask "
+          "differs")
     sub = data + "_sub"
     os.makedirs(sub)
     lio.save_points(lio.load_points(os.path.join(data, "numpy_input_t")),
@@ -615,10 +660,11 @@ def phase_cli_map(data):
         lio.load_points(os.path.join(data, "numpy_input_b"))[::SUB_STRIDE],
         os.path.join(sub, "numpy_input_b"))
     say(f"  the same terrain with every {SUB_STRIDE}th body candidate:")
-    _, s_dma, _ = run_map(sub, path_name="every 16th candidate")
-    _, s_plain, l_plain = run_map(sub, "--backend", "torch")
-    _, s_csr_plain, _ = run_map(sub, "--solver", "csr", "--backend", "torch")
-    _, s_rot, l_rot = run_map(sub, "--rot-sweep",
+    _, s_dma, _, _ = run_map(sub, path_name="every 16th candidate")
+    _, s_plain, l_plain, _ = run_map(sub, "--backend", "torch")
+    _, s_csr_plain, _, _ = run_map(sub, "--solver", "csr", "--backend",
+                                   "torch")
+    _, s_rot, l_rot, _ = run_map(sub, "--rot-sweep",
                               path_name="--rot-sweep, every 16th candidate")
     check(np.array_equal(m_dma, m_csr),
           f"csr-dma and csr masks differ on {int((m_dma != m_csr).sum())}")
@@ -643,6 +689,23 @@ def phase_cli_map(data):
         f"across the kernels and --backend torch for both solvers "
         f"({int(s_dma.sum())} feasible of {s_dma.size}); the sweep adds "
         f"{int(s_rot.sum() - s_dma.sum())} there")
+    # `cli map --solver csr` with K3 of other builds, in turns with this
+    # build's (other, this, this, other): summed K3 ms and the wall
+    for label, lib in alternatives(others, bind_multileg_library):
+        res = []
+        for turn, use in enumerate((lib, None, None, lib)):
+            name = "other" if use is not None else "this"
+            with multileg_library(use):
+                line, m, _, sums = run_map(
+                    data, "--solver", "csr", keep=False,
+                    path_name=f"--solver csr, turn {turn + 1}: {name}")
+            check(np.array_equal(m, m_csr), f"{label}: K3 gives another mask")
+            res.append((sums.get("multileg", 0.0), line["seconds"]))
+        say(f"phase 5: cli map --solver csr, K3 of {label} against this "
+            f"build in turns (other, this, this, other): K3 ms "
+            + ", ".join(f"{r[0]:.1f}" for r in res) + "; wall s "
+            + ", ".join(f"{r[1]}" for r in res) + "; other / this "
+            f"{(res[0][0] + res[3][0]) / (res[1][0] + res[2][0]):.3f}")
     return {"multileg": l_csr["multileg"], "csr_window": l_dma["csr_window"]}
 
 
@@ -676,7 +739,9 @@ def intercepted(module, name, hook):
 KERNEL_IDS = {"reachability": "K1", "distance": "K2",
               "distance_cells": "K2 cell kernel",
               "multileg": "K3",
-              "csr_window": "K4", "item": "K5", "cell_quat_major": "K6a",
+              "csr_window": "K4", "item": "K5", "item_cells": "K5 cell driver",
+              "item_cells_shared": "K5 cell driver (shared rule)",
+              "cell_quat_major": "K6a",
               "cell_shared": "K6b", "cell_cm_perleg": "K6c"}
 LAUNCHERS = {  # kernel -> (its library, its C launcher)
     "reachability": (ck._library, "legmov_reachability"),
@@ -685,6 +750,7 @@ LAUNCHERS = {  # kernel -> (its library, its C launcher)
     "multileg": (cm._library, "legmov_multileg"),
     "csr_window": (cm._library, "legmov_csr_window"),
     "item": (cmd.library, "legmov_item"),
+    "item_cells": (cmd.library, "legmov_item_cells"),
     "cell_quat_major": (cmd.library, "legmov_cell_quat_major"),
     "cell_shared": (cmd.library, "legmov_cell_shared"),
     "cell_cm_perleg": (cmd.library, "legmov_cell_cm_perleg"),
@@ -726,24 +792,28 @@ def kernel_clock(kernels):
             setattr(lib, fname, real)
 
 
-def report_clock(path, recs, bounds=None):
+def report_clock(path, recs, bounds=None, keep=True):
     """Sum the events of one path (after its last synchronisation) per
     kernel, beside the summed bound where ``bounds[kernel](records)`` gives
-    one, and keep them in PATH_TIMES."""
+    one, and keep them in PATH_TIMES (unless ``keep`` is False).  Returns
+    kernel -> summed ms."""
     torch.cuda.synchronize()
     parts = []
+    sums = {}
     for key, rec in recs.items():
         if not rec:
             continue
-        ms = sum(a.elapsed_time(b) for a, b, _ in rec)
+        ms = sums[key] = sum(a.elapsed_time(b) for a, b, _ in rec)
         bd = bounds[key](rec) if bounds and key in bounds else None
-        PATH_TIMES[key, path] = {"launches": len(rec), "ms": ms,
-                                 "bound_ms": bd}
+        if keep:
+            PATH_TIMES[key, path] = {"launches": len(rec), "ms": ms,
+                                     "bound_ms": bd}
         parts.append(f"{KERNEL_IDS[key]} {len(rec)} launches {ms:.3f} ms "
                      + (f"(bound {bd:.3f} ms)" if bd is not None
-                        else "(bound not measured)"))
+                        else "(no bound here)"))
     if parts:
         say(f"    kernel time on {path}: " + "; ".join(parts))
+    return sums
 
 
 def reach_bound(leg):
@@ -793,42 +863,58 @@ def k4_bounds(calls):
     return lo, hi
 
 
-def item_pre_pairs(tab, gx, gy, gz):
-    """(item, candidate) pairs of one K5 launch inside the elongated box:
-    the item kernel's head in plain tensor code, tiled as its plain version
-    tiles, summed on the device."""
-    P, C = tab.shape[0], gx.shape[1]
+def item_cells_work(centers, footholds, legtab, L):
+    """What one launch of K5's cell driver needs: (cells, footholds, (cell,
+    foothold) pairs inside the elongated box as a device tensor,
+    orientations, legs, bytes).  The box test in plain tensor code, the
+    kernel's expressions, over foothold chunks."""
+    C, F, S = centers.shape[0], footholds.shape[0], legtab.shape[0]
+    e = legtab[0, 13:16]
     n = torch.zeros((), dtype=torch.int64, device=DEV)
-    rows = max(1, (1 << 22) // max(C, 1))
-    for lo in range(0, P if C else 0, rows):
-        t = tab[lo:lo + rows]
-        sl = slice(0, 1) if gx.shape[0] == 1 else slice(lo, lo + rows)
-        pre = cmd.item_head_plain(lambda i, t=t: t[:, i:i + 1], gx[sl],
-                                  gy[sl], gz[sl])[0]
-        n += pre.sum()
-    return n
+    for lo in range(0, F, 1 << 12):
+        r = footholds[None, lo:lo + (1 << 12)] - centers[:, None]
+        n += ((r > -e) & (r <= e)).all(dim=-1).sum()
+    n_bytes = legtab.numel() * 4 + C * 13 + F * 12 + 3 * C
+    return C, F, n, S, L, n_bytes
 
 
-def k5_bound(calls):
-    """K5's summed bound over ``calls`` [(pairs, pairs in the box, legs,
-    bytes)]: the head on every pair, the legs on the pairs in the box."""
+def item_cells_every_pair(calls):
+    """K5 cell driver's summed time over launches ``calls``
+    (:func:`item_cells_work` each) at the card's rates for every pair in the
+    box on every orientation and leg: an over-count of what decides the
+    flags (the driver skips settled work), so no bound."""
     if not calls:
         return 0.0
-    pre = torch.stack([c[1] for c in calls]).tolist()
-    return sum(bound_of(b, pairs * cmd.HEAD_FLOPS + n * L * cmd.LEG_FLOPS)[0]
-               for (pairs, _, L, b), n in zip(calls, pre))
+    inb = torch.stack([c[2] for c in calls]).tolist()
+    return sum(bound_of(b, cmd.item_cells_flops(C * F, n * S, n * S * L))[0]
+               for (C, F, _, S, L, b), n in zip(calls, inb))
 
 
-def multileg_bound(robot):
-    """K3's bound over its launches: P poses x C candidates (arguments 4
-    and 5), every leg of ``robot`` on each."""
-    per_leg = sum(cm.leg_flops(c) for c in cm.make_multileg_kernel(robot).consts)
+def k3_bound(need, consts, fixed, shape):
+    """K3's bound for one launch from ``cm.multileg_need``'s counts (12
+    bytes a candidate read, ``fixed`` bytes of tables and words) and, as
+    the count before it, from every leg on every candidate: ((ms, by,
+    bytes ms, operations ms), every-leg ms)."""
+    P, C = shape
+    every = P * C * (cm.UNROTATE_FLOPS + sum(cm.leg_flops(c) for c in consts))
+    return (bound_of(int(need[0]) * 12 + fixed,
+                     cm.multileg_flops(need, consts)),
+            bound_of(P * C * 12 + fixed, every)[0])
 
-    def total(rec):
-        return sum(bound_ms(args[4] * args[5], 12,
-                            cm.UNROTATE_FLOPS + per_leg)[0]
-                   for _, _, args in rec)
-    return total
+
+def k3_bounds(calls):
+    """K3's summed bound over ``calls`` [(need, leg constants, fixed bytes,
+    (P, C))], one synchronisation: (from what decides each output, from
+    every leg on every candidate)."""
+    if not calls:
+        return 0.0, 0.0
+    need = torch.stack([c[0] for c in calls]).tolist()
+    lo = hi = 0.0
+    for n, (_, consts, fixed, shape) in zip(need, calls):
+        b, every = k3_bound(n, consts, fixed, shape)
+        lo += b[0]
+        hi += every
+    return lo, hi
 
 
 def cell_bound(words, C, CH, S, legtab_numel):
@@ -1043,8 +1129,33 @@ def phase_map_scale():
             "window": kw["window"]}
 
 
-def phase_multileg_kernels(scale):
-    """K3 and K4 alone, against their plain versions, and their times."""
+def k3_call(lib, tab, g, bits0, params):
+    """One launch of ``lib``'s K3 on ``tab``, ``g``, its words seeded with
+    ``bits0`` (the found-legs input)."""
+    bits = bits0.clone()
+    err = lib.legmov_multileg(tab.data_ptr(), g[0].data_ptr(), g[1].data_ptr(),
+                              g[2].data_ptr(), g[0].shape[0], g[0].shape[1],
+                              bits.data_ptr(), ctypes.byref(params),
+                              cm._stream())
+    check(err == 0, f"legmov_multileg: CUDA error {err}")
+    return bits
+
+
+def k4_call(lib, tab, legs_in, st, ln, mk, xs, ys, zs, params):
+    """One launch of ``lib``'s K4."""
+    out = torch.empty(legs_in.shape, dtype=torch.bool, device=DEV)
+    err = lib.legmov_csr_window(
+        st.data_ptr(), ln.data_ptr(), mk.data_ptr(), st.shape[0], st.shape[1],
+        tab.data_ptr(), legs_in.data_ptr(), xs.data_ptr(), ys.data_ptr(),
+        zs.data_ptr(), out.data_ptr(), ctypes.byref(params), cm._stream())
+    check(err == 0, f"legmov_csr_window: CUDA error {err}")
+    return out
+
+
+def phase_multileg_kernels(scale, others=()):
+    """K3 and K4 alone, against their plain versions, and their times; then
+    against the builds of the sources ``others`` (earlier
+    ``multileg_kernels.cu`` files), in turns."""
     robot, csr = scale["robot"], scale["csr"]
     L = 6
     k3 = cm.make_multileg_kernel(robot)
@@ -1060,8 +1171,8 @@ def phase_multileg_kernels(scale):
         q = quat.from_rpy(rpy[:, 0], rpy[:, 1], rpy[:, 2]).to(DEV)
         return cm.oriented_tables(torch.from_numpy(body).to(DEV), q, robot)
 
-    def cands(P, C, special=False):
-        c = rng.uniform(-600, 600, (P, C, 3)).astype(np.float32)
+    def cands(P, C, special=False, spread=600):
+        c = rng.uniform(-spread, spread, (P, C, 3)).astype(np.float32)
         if special and P >= 4 and C >= 8:
             c[0, :8] = np.nan
             c[1, :8] = np.inf
@@ -1070,36 +1181,80 @@ def phase_multileg_kernels(scale):
         return [torch.from_numpy(np.ascontiguousarray(c[..., i])).to(DEV)
                 for i in range(3)]
 
+    def none(P):
+        return torch.zeros((P, L), dtype=torch.bool, device=DEV)
+
     bad3 = 0
     for P in (0, 1, 7, 9):
-        for C in (0, 128, 1000):
+        for C in (0, 128, 1000, 1100, 2085):  # C off the tile of 4 x 256
             tab, g = poses(P), cands(P, C, special=True)
-            got = k3(tab, *g)
-            check(got.shape == (P, L) and got.dtype == torch.bool,
-                  f"K3 P={P} C={C} shape")
-            bad3 += int((got != k3.plain(tab, *g)).sum())
+            found = torch.from_numpy(rng.random((P, L)) < 0.3).to(DEV)
+            for legs_in in (none(P), found):
+                got = k3(tab, *g, legs_in)
+                check(got.shape == (P, L) and got.dtype == torch.bool,
+                      f"K3 P={P} C={C} shape")
+                bad3 += int((got != k3.plain(tab, *g, legs_in)).sum())
+    # rows whose legs are all found on their first candidates: each pose's
+    # first hit of each leg moved to the front
+    tab, g = poses(64), cands(64, 4096)
+    s_ = lambda i: tab[:, i:i + 1]
+    v = cm._unrotate_plain(s_, *g)
+    hits = torch.stack([cm._one_leg_plain(s_, l, c, *v)
+                        for l, c in enumerate(k3.consts)], -1).cpu().numpy()
+    order = []
+    for p in range(64):
+        first = [int(np.flatnonzero(hits[p, :, l])[0])
+                 for l in range(L) if hits[p, :, l].any()]
+        first = list(dict.fromkeys(first))
+        taken = set(first)
+        order.append(first + [c for c in range(4096) if c not in taken])
+    idx = torch.tensor(order, device=DEV)
+    g = [torch.gather(x, 1, idx).contiguous() for x in g]
+    every = torch.ones((64, L), dtype=torch.bool, device=DEV)
+    for legs_in in (none(64), every):
+        bad3 += int((k3(tab, *g, legs_in) != k3.plain(tab, *g, legs_in)).sum())
+    # [2048, 8192] twice: candidates within 600 mm of the poses (most legs
+    # found in the first tiles) and within 3000 mm (most candidates out of
+    # reach: the walk goes on far into each row)
     P3, C3 = 2048, 8192
-    tab, g = poses(P3), cands(P3, C3, special=True)
-    got, want = k3(tab, *g), k3.plain(tab, *g)
-    bad3 += int((got != want).sum())
-    say(f"  K3 [{P3}, {C3}] with NaN/inf/1e9 rows, and ragged P in "
-        f"(0, 1, 7, 9) x C in (0, 128, 1000): mismatches {bad3}; "
-        f"{int(want.sum())} of {want.numel()} bits set")
+    tab = poses(P3)
+    zero = none(P3)
+    p3 = cm.multileg_params(k3.consts)
+    words = torch.zeros(P3, dtype=torch.int32, device=DEV)
+    k3_in, rows3 = {}, {}
+    for spread in (600, 3000):
+        g = cands(P3, C3, special=True, spread=spread)
+        got, want = k3(tab, *g, zero), k3.plain(tab, *g, zero)
+        n_bad = int((got != want).sum())
+        bad3 += n_bad
+        # the kernel through its C launcher (the wrapper adds the found-legs
+        # words in and the bits out, some small kernels a call)
+        ms3 = time_cuda(lambda: k3_call(cm._library(), tab, g, words, p3))
+        plain3 = time_cuda(lambda: k3.plain(tab, *g, zero), warmup=1, reps=3)
+        need = cm.multileg_need(tab, *g, k3.consts, zero).tolist()
+        (b3, by3, t_b, t_o), b3_hi = k3_bound(
+            need, k3.consts, tab.numel() * 4 + P3 * 8, (P3, C3))
+        say(f"  K3 [{P3}, {C3}], candidates within {spread} mm, NaN/inf/1e9 "
+            f"rows: mismatches {n_bad}; {int(want.sum())} of {want.numel()} "
+            f"bits set; a walk in candidate order needs {need[0]} reads, "
+            f"{need[1]} un-rotations and {need[2:]} leg evaluations (of "
+            f"{P3 * C3} each)")
+        say(f"  K3 {ms3:.4f} ms  plain {plain3:.2f} ms  bound {b3:.4f} ms "
+            f"({by3}; bytes {t_b:.4f}, operations {t_o:.4f}: what decides "
+            f"the output)  share of bound {b3 / ms3:.3f}; every leg on every "
+            f"candidate {b3_hi:.4f} ms ({b3_hi / ms3:.3f})")
+        k3_in[spread] = (tab, g)
+        # booleans: the largest |difference| is 1 if any bit differs
+        rows3[spread] = {"n": P3 * C3, "ms": ms3, "plain_ms": plain3,
+                         "bound_ms": b3, "bound_by": by3,
+                         "bound_ms_every_leg": b3_hi}
+    say(f"  K3 ragged P in (0, 1, 7, 9) x C in (0, 128, 1000, 1100, 2085) "
+        f"with and without found legs in; 64 rows whose legs are found on "
+        f"their first candidates, with no legs and every leg in; the two "
+        f"[{P3}, {C3}] launches: mismatches {bad3}")
     check(bad3 == 0, f"K3: {bad3} mismatching bits against the plain version")
-    ms3 = time_cuda(lambda: k3(tab, *g))
-    plain3 = time_cuda(lambda: k3.plain(tab, *g), warmup=1, reps=3)
-    n3 = P3 * C3
-    bytes3 = n3 * 12 + tab.numel() * 4 + P3 * 4
-    ops3 = n3 * (cm.UNROTATE_FLOPS + per_leg)
-    t_b, t_o = bytes3 / HBM_BYTES_PER_S * 1e3, ops3 / FP32_FLOPS_PER_S * 1e3
-    b3, by3 = (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
-    say(f"  K3 {ms3:.4f} ms  plain {plain3:.2f} ms  bound {b3:.4f} ms ({by3}; "
-        f"bytes {t_b:.4f}, operations {t_o:.4f})  share of bound "
-        f"{b3 / ms3:.3f}")
-    # booleans: the largest |difference| is 1 if any bit differs, else 0
-    row3 = {"max_abs_err": float(min(bad3, 1)), "n": n3, "ms": ms3,
-            "plain_ms": plain3, "bound_ms": b3, "bound_by": by3}
-    del tab, g, got, want
+    row3 = dict(rows3[600], max_abs_err=float(min(bad3, 1)),
+                wide_spread=rows3[3000])
 
     # K4: synthetic queues over an array with NaN/inf/1e9 rows
     F = 200_000
@@ -1152,6 +1307,28 @@ def phase_multileg_kernels(scale):
         f"{b4 / ms4:.3f}")
     row4 = {"max_abs_err": float(min(bad4, 1)), "n": work["points"], "ms": ms4,
             "plain_ms": plain4, "bound_ms": b4, "bound_by": by4}
+
+    # the same launches of other builds, each timed in turns with this
+    # build's (other, this, this, other), all through the C launchers
+    k4_args = (tab, legs_in, st, ln, mk, csr.xs, csr.ys, csr.zs, p3)
+    for label, lib in alternatives(others, bind_multileg_library):
+        here = cm._library()
+        say(f"phase 7: {label} against this build")
+        cases = [(f"K3 [{P3}, {C3}] within {sp} mm",
+                  lambda a=k3_in[sp]: k3_call(lib, *a, words, p3),
+                  lambda a=k3_in[sp]: k3_call(here, *a, words, p3))
+                 for sp in (600, 3000)]
+        cases.append((f"K4 real round [{A}, {S}]",
+                      lambda: k4_call(lib, *k4_args),
+                      lambda: k4_call(here, *k4_args)))
+        for kid, other, this in cases:
+            check(torch.equal(other(), this()),
+                  f"{label}: {kid} gives other words than this build's")
+            t = [time_cuda(other, warmup=1), time_cuda(this, warmup=1),
+                 time_cuda(this, warmup=1), time_cuda(other, warmup=1)]
+            say(f"  {kid}: equal words; ms in turns: other {t[0]:.4f}, this "
+                f"{t[1]:.4f}, this {t[2]:.4f}, other {t[3]:.4f}; other / "
+                f"this {(t[0] + t[3]) / (t[1] + t[2]):.3f}")
     return row3, row4
 
 
@@ -1169,7 +1346,7 @@ QUARTER = ("--box", "1250", "--depth", "6", "--min-box", "20")
 SOLVE_COUNTERS = {
     "distance": (ck, "distance_kernel"),
     "distance_cells": (ck, "distance_cells_kernel"),
-    "item": (cmd, "multileg_distance_kernel"),
+    "item_cells": (cmd, "item_cells_kernel"),
     "cell_quat_major": (cce, "cell_eval_quat_major"),
     "cell_shared": (cce, "cell_eval_shared"),
     "cell_cm_perleg": (cce, "cell_eval_cm_perleg"),
@@ -1219,13 +1396,18 @@ def run_solve(data, *extra, capture=None, show_levels=False,
     cell_calls = []
     k5_calls = []
 
-    def keep_k5(real, tab, gx, gy, gz, consts, k, *a, **kw):
-        out = real(tab, gx, gy, gz, consts, k, *a, **kw)
-        if out.is_cuda and tab.shape[0] and gx.shape[1]:
-            k5_calls.append((tab.shape[0] * gx.shape[1],
-                             item_pre_pairs(tab, gx, gy, gz), len(consts),
-                             tab.numel() * 4 + 3 * gx.numel() * 4
-                             + tab.shape[0] * 4))
+    def keep_k5(real, centers, pv, footholds, legtab, consts, k, shared,
+                **kw):
+        out = real(centers, pv, footholds, legtab, consts, k, shared, **kw)
+        if out.is_cuda and centers.shape[0]:
+            k5_calls.append(item_cells_work(centers, footholds, legtab,
+                                            len(consts)))
+            kept.setdefault("dense_all", []).append(
+                (centers, pv, footholds, legtab, consts, k, shared))
+            w = centers.shape[0] * footholds.shape[0]
+            if w > kept.get("dense", {}).get("pairs", -1):
+                kept["dense"] = dict(pairs=w, args=(
+                    centers, pv, footholds, legtab, consts, k, shared))
         return out
 
     def keep_record(real, *a, **kw):
@@ -1274,8 +1456,7 @@ def run_solve(data, *extra, capture=None, show_levels=False,
                                         keep_record))
         stack.enter_context(intercepted(ck, "distance_cells_kernel",
                                         keep_cells))
-        stack.enter_context(intercepted(cmd, "multileg_distance_kernel",
-                                        keep_k5))
+        stack.enter_context(intercepted(cmd, "item_cells_kernel", keep_k5))
         if sync_check:
             stack.enter_context(intercepted(
                 hs, "_upload", lambda real, *a: no_syncs_call(real, *a)))
@@ -1286,7 +1467,8 @@ def run_solve(data, *extra, capture=None, show_levels=False,
         for name in CELL_WRAPPERS:
             stack.enter_context(intercepted(cce, name, keep_words(name)))
         recs = stack.enter_context(kernel_clock(
-            ("distance", "distance_cells", "item", *CELL_WRAPPERS.values())))
+            ("distance", "distance_cells", "item_cells",
+             *CELL_WRAPPERS.values())))
         stack.enter_context(contextlib.redirect_stdout(buf))
         if sync_check:
             kept["syncs"] = stack.enter_context(counting_syncs())
@@ -1310,7 +1492,8 @@ def run_solve(data, *extra, capture=None, show_levels=False,
         f"{line['valid']} edge {line['edge']} max depth {line['max_depth']} "
         f"seconds {line['seconds']} host syncs {line['host_syncs']} launches "
         f"K2 {launches['distance']} K2 cell kernel "
-        f"{launches['distance_cells']} K5 {launches['item']} K6a "
+        f"{launches['distance_cells']} K5 cell driver "
+        f"{launches['item_cells']} K6a "
         f"{launches['cell_quat_major']} K6b {launches['cell_shared']} K6c "
         f"{launches['cell_cm_perleg']}")
     if show_levels:
@@ -1322,12 +1505,20 @@ def run_solve(data, *extra, capture=None, show_levels=False,
         return lambda rec: sum(cell_bound(*w)[0] for w in words[name]
                                if w[1] > 0 and w[2] > 0)
 
-    report_clock(f"cli solve {' '.join(extra)}", recs,
+    path = f"cli solve {' '.join(extra)}"
+    report_clock(path, recs,
                  {"distance": dist_bound(get_m2_leg()),
                   "distance_cells": lambda rec: cells_bound(cell_calls),
-                  "item": lambda rec: k5_bound(k5_calls),
                   **{key: cell_bounds(name)
                      for name, key in CELL_WRAPPERS.items()}})
+    if k5_calls:
+        # what decides the flags is counted on phase 10's batches only: on
+        # every batch of a path the plain walk would take a minute
+        every = item_cells_every_pair(k5_calls)
+        PATH_TIMES["item_cells", path]["ms_every_pair"] = every
+        say(f"    K5 cell driver: every pair in the box on every orientation "
+            f"and leg would take {every:.3f} ms at the card's rates (an "
+            f"over-count, no bound)")
     return line, rec, launches, kept
 
 
@@ -1434,7 +1625,7 @@ def phase_cli_solve(data, quick):
         key = "cell_quat_major" if mode == "per-leg" else "cell_shared"
         other = "cell_shared" if mode == "per-leg" else "cell_quat_major"
         check(la["distance_cells"] > 0 and la[key] > 0 and la[other] == 0
-              and la["cell_cm_perleg"] == 0 and la["item"] == 0,
+              and la["cell_cm_perleg"] == 0 and la["item_cells"] == 0,
               f"{mode}: unexpected launches {la}")
         out["cells"][mode] = identity_levels(mode, line, la, kept)
         check(line["host_syncs"] == line["max_depth"] + 1,
@@ -1499,17 +1690,23 @@ def phase_cli_solve(data, quick):
     # CSR candidates against dense candidates: the whole solve on a quarter
     # of the box, whose deepest level is orientation-active; the dense runs
     # put the item kernel on the CLI's path
+    out["dense"] = {}
     for mode in ("per-leg", "shared"):
         args = ("--legs", "4", "--k", "4", *QUARTER, "--mode", mode)
         _, r_csr, _, _ = run_solve(data, *args)
-        l_dense, r_dense, la, _ = run_solve(data, *args, "--candidates",
-                                            "dense")
+        l_dense, r_dense, la, kept = run_solve(data, *args, "--candidates",
+                                               "dense")
         check(same_record(r_csr, r_dense),
               f"{mode}: CSR and dense candidates give different cells")
-        check(la["item"] > 0 and la["cell_quat_major"] == 0
+        check(la["item_cells"] > 0 and la["cell_quat_major"] == 0
               and la["cell_shared"] == 0,
               f"{mode}: --candidates dense launches {la}")
-        out["launches"]["item"] = out["launches"].get("item", 0) + la["item"]
+        out["launches"]["item_cells"] = (out["launches"].get("item_cells", 0)
+                                         + la["item_cells"])
+        # the batch of the dense solve with the most (cell, foothold) pairs,
+        # and every batch
+        out["dense"][mode] = kept["dense"]["args"]
+        out.setdefault("dense_all", {})[mode] = kept["dense_all"]
         say(f"  {mode}: CSR == dense candidates on the quarter box "
             f"({l_dense['cells']} cells, {l_dense['valid']} valid, "
             f"{l_dense['edge']} edge)")
@@ -1736,6 +1933,9 @@ def phase_cell_kernels(solve, gates, terrain, others=()):
                         "bound_by": by5}
     k5_in = (tab, g, cmd.item_params(k5.consts, k))
     del got, want
+    rows_out["item_cells"], k5c_in = phase_item_cells(
+        solve, robot, k, quats, blocks, centers, pv, half, parent_half, reach,
+        torch.from_numpy(np.ascontiguousarray(fh)).to(DEV))
 
     # K6: special values and a dead queue on the sampled cells, then the
     # times on the whole captured batches
@@ -1837,9 +2037,226 @@ def phase_cell_kernels(solve, gates, terrain, others=()):
     if others:
         batches = {"per-leg": unpack_batch(solve, "per-leg"),
                    "shared": unpack_batch(solve, "shared")}
-        for label, lib in alternatives(others):
-            compare_builds(label, lib, cmd.library(), batches, k5_in)
+        for label, lib in alternatives(others, bind_cell_library):
+            compare_builds(label, lib, cmd.library(), batches, k5_in,
+                           k5c_in)
     return rows_out
+
+
+def form_before(c, p, f, lt, consts, k, shared, params):
+    """K5's form before its cell driver, as the dense solver ran it: the
+    item kernel once per window of 2048 footholds over every (cell,
+    orientation) item, its lanes ORed and folded in eager code."""
+    S, L = lt.shape[0], len(consts)
+    tab = cmd.item_rows(c, p, lt)
+    lanes = torch.zeros((tab.shape[0], 3 * L + 3), dtype=torch.bool,
+                        device=c.device)
+    fx, fy, fz = (f[:, i].contiguous()[None, :] for i in range(3))
+    for lo in range(0, f.shape[0], 2048):
+        g = [x[:, lo:lo + 2048].contiguous() for x in (fx, fy, fz)]
+        lanes |= cmd.multileg_distance_kernel(tab, *g, consts, k, params)
+    return cmd.fold_item_lanes(lanes, p, S, k, shared)
+
+
+def pass_turns(old, new):
+    """Two lists of calls (every batch of a solve, each form) in turns:
+    old, new, new, old, each turn one pass over its list after a warm-up
+    pass of each: (summed kernel ms: CUDA events around each call of the
+    item form's and the cell driver's C launchers; wall ms: host clock from
+    a synchronise before the pass to one after it)."""
+    def one(calls):
+        torch.cuda.synchronize()
+        with kernel_clock(("item", "item_cells")) as recs:
+            t0 = time.perf_counter()
+            for fn in calls:
+                fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        return (sum(a.elapsed_time(b) for r in recs.values()
+                    for a, b, _ in r), wall)
+    one(old)
+    one(new)
+    return [one(old), one(new), one(new), one(old)]
+
+
+def batch_turns(old, new, reps=3):
+    """``old`` and ``new`` (calls that evaluate one batch) in turns: old,
+    new, new, old; each turn the median of ``reps`` runs after a warm-up
+    of (summed kernel ms: CUDA events around each call of the item form's
+    and the cell driver's C launchers; wall ms: host clock from a
+    synchronise to a synchronise)."""
+    def one(fn):
+        ks, ws = [], []
+        for i in range(reps + 1):
+            torch.cuda.synchronize()
+            with kernel_clock(("item", "item_cells")) as recs:
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+            if i:
+                ks.append(sum(a.elapsed_time(b) for r in recs.values()
+                              for a, b, _ in r))
+                ws.append(wall)
+        return statistics.median(ks), statistics.median(ws)
+    return [one(old), one(new), one(new), one(old)]
+
+
+def phase_item_cells(solve, robot, k, quats, blocks, centers, pv, half,
+                     parent_half, reach, fh):
+    """K5's cell driver against its plain version and against the solver's
+    form before it (the item kernel over foothold windows of 2048, its
+    lanes folded in eager code) on special batches, on phase 10's batch
+    (``centers`` x the 2048 footholds ``fh``) and on the largest batch of
+    each quarter-box ``--candidates dense`` solve of phase 8; times in
+    turns with that form beside the bound."""
+    consts = cmd.dist_leg_constants(robot)
+    params = cmd.item_params(consts, k)
+    L = len(consts)
+    legtab = cmd.level_table(blocks, quats, half, parent_half, 0.0, reach)
+
+    def old(c, p, f, lt, shared, k=k):
+        return form_before(c, p, f, lt, consts, k, shared, params)
+
+    def new(c, p, f, lt, shared, k=k):
+        return cmd.item_cells_kernel(c, p, f, lt, consts, k, shared,
+                                     params=params)
+
+    def plain(c, p, f, lt, shared, k=k):
+        return cmd.item_cells_plain(c, p, f, lt, consts, k, shared)
+
+    # special batches on 64 of the cells
+    few, pvf = centers[:64].contiguous(), pv[:64].contiguous()
+    odd = fh[:1500].clone()
+    odd[0:3] = float("nan")
+    odd[3:6, 1] = float("inf")
+    odd[6:9, 2] = -float("inf")
+    odd[9:40] = 1e9
+    f1000 = fh[:1000].contiguous()
+    cases = [("1,000 footholds (off the tile of 256)", few, pvf, f1000,
+              legtab),
+             ("NaN/inf/1e9 footholds", few, pvf, odd, legtab),
+             ("no footholds", few, pvf, fh[:0], legtab),
+             ("one orientation (S = 1)", few, pvf, f1000,
+              legtab[:1].contiguous()),
+             ("every parent valid", few, torch.ones_like(pvf), f1000, legtab),
+             ("one cell", few[:1].contiguous(), pvf[:1].contiguous(), f1000,
+              legtab)]
+    bad = 0
+    for shared in (False, True):
+        for label, c, p, f, lt in cases:
+            got = new(c, p, f, lt, shared)
+            check(got.shape == (3, c.shape[0]) and got.dtype == torch.bool,
+                  f"K5 cell driver {label}: shape")
+            bad += int((got != plain(c, p, f, lt, shared)).sum())
+    say(f"  K5 cell driver on special batches of {few.shape[0]} cells "
+        f"({'; '.join(c[0] for c in cases)}), both rules, S = "
+        f"{legtab.shape[0]} unless said: mismatches {bad} against the plain "
+        "version")
+
+    def turns(tag, c, p, f, lt, shared, kk):
+        nonlocal bad
+        got, want = new(c, p, f, lt, shared, kk), old(c, p, f, lt, shared, kk)
+        n_bad = int((got != want).sum())
+        bad += n_bad
+        t = batch_turns(lambda: old(c, p, f, lt, shared, kk),
+                        lambda: new(c, p, f, lt, shared, kk))
+        C, F, n, S, _, nb = item_cells_work(c, f, lt, L)
+        n = int(n)
+        # the bound from what decides the flags (a walk of the plain
+        # item's bits); beside it the count of every pair in the box
+        need = cmd.item_cells_need(c, p, f, lt, consts, kk, shared).tolist()
+        bd, by, t_b, t_o = bound_of(nb, cmd.item_cells_flops(*need))
+        every = bound_of(nb, cmd.item_cells_flops(C * F, n * S, n * S * L))[0]
+        new_ms = (t[1][0] + t[2][0]) / 2
+        old_ms = (t[0][0] + t[3][0]) / 2
+        say(f"  K5 {tag}: {C} cells x {F} footholds, {n} (cell, foothold) "
+            f"pairs in the box, S = {S}; flags {got.sum(dim=1).tolist()}, "
+            f"mismatches against the form before {n_bad}; kernel ms in "
+            f"turns: before {t[0][0]:.3f}, cell driver {t[1][0]:.3f}, "
+            f"{t[2][0]:.3f}, before {t[3][0]:.3f} (before / driver "
+            f"{old_ms / new_ms:.3f}); batch wall ms {t[0][1]:.2f}, "
+            f"{t[1][1]:.2f}, {t[2][1]:.2f}, {t[3][1]:.2f}")
+        say(f"    what decides the flags: {need[0]} box tests, {need[1]} "
+            f"un-rotations, {need[2]} leg pipelines; bound {bd:.4f} ms "
+            f"({by}), share {bd / new_ms:.3f} (before {bd / old_ms:.3f}); "
+            f"every pair in the box on every orientation and leg "
+            f"{every:.4f} ms")
+        return {"tag": tag, "cells": C, "footholds": F, "pairs_in_box": n,
+                "quats": S, "ms": new_ms, "form_before_ms": old_ms,
+                "wall_ms": (t[1][1] + t[2][1]) / 2,
+                "form_before_wall_ms": (t[0][1] + t[3][1]) / 2,
+                "turns": t, "need": need, "bound_ms": bd, "bound_by": by,
+                "bound_ms_every_pair": every}
+
+    batches = [(f"{'shared' if sh else 'per-leg'} rule on phase 10's batch",
+                (centers, pv, fh, legtab, sh, k)) for sh in (False, True)]
+    for mode in ("per-leg", "shared"):
+        c, p, f, lt, cs, kk, sh = solve["dense"][mode]
+        batches.append((f"real batch of the quarter-box --candidates dense "
+                        f"{mode} solve", (c, p, f, lt, sh, kk)))
+    rows = [turns(tag, *a) for tag, a in batches]
+    # every batch of each quarter-box dense solve, both forms in turns
+    solves = []
+    for mode in ("per-leg", "shared"):
+        calls = solve["dense_all"][mode]
+        run_old = [lambda a=a: old(a[0], a[1], a[2], a[3], a[6], a[5])
+                   for a in calls]
+        run_new = [lambda a=a: new(a[0], a[1], a[2], a[3], a[6], a[5])
+                   for a in calls]
+        n_bad = sum(int((x() != y()).sum()) for x, y in zip(run_old, run_new))
+        bad += n_bad
+        t = pass_turns(run_old, run_new)
+        new_ms, old_ms = (t[1][0] + t[2][0]) / 2, (t[0][0] + t[3][0]) / 2
+        say(f"  K5 every batch of the quarter-box --candidates dense {mode} "
+            f"solve ({len(calls)} batches, {sum(a[0].shape[0] for a in calls)} "
+            f"cells): mismatches against the form before {n_bad}; summed "
+            f"kernel ms in turns: before {t[0][0]:.1f}, cell driver "
+            f"{t[1][0]:.1f}, {t[2][0]:.1f}, before {t[3][0]:.1f} (before / "
+            f"driver {old_ms / new_ms:.3f}); summed wall ms {t[0][1]:.1f}, "
+            f"{t[1][1]:.1f}, {t[2][1]:.1f}, {t[3][1]:.1f}")
+        solves.append({"solve": mode, "batches": len(calls), "ms": new_ms,
+                       "form_before_ms": old_ms,
+                       "wall_ms": (t[1][1] + t[2][1]) / 2,
+                       "form_before_wall_ms": (t[0][1] + t[3][1]) / 2,
+                       "turns": t})
+    sums = [sum(r[key] for r in solves) for key in ("form_before_ms", "ms")]
+    say(f"  K5 summed over both dense solves in turns: before {sums[0]:.1f} "
+        f"ms, cell driver {sums[1]:.1f} ms (before / driver "
+        f"{sums[0] / sums[1]:.3f})")
+    check(bad == 0, f"K5 cell driver: {bad} mismatching flags")
+    plain_ms = time_cuda(lambda: plain(centers, pv, fh, legtab, False),
+                         warmup=0, reps=1)
+    head = rows[0]
+    return {"max_abs_err": float(min(bad, 1)),
+            "n": head["cells"] * head["footholds"], "ms": head["ms"],
+            "plain_ms": plain_ms, "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"],
+            "form_before_ms": head["form_before_ms"],
+            "batches": rows, "dense_solves": solves}, (params, batches)
+
+
+def bind_multileg_library(lib):
+    """Argument types for a library built from a ``multileg_kernels.cu``,
+    as this build's have them."""
+    here = cm._library()
+    for name in ("legmov_multileg", "legmov_csr_window"):
+        getattr(lib, name).restype = ctypes.c_int
+        getattr(lib, name).argtypes = getattr(here, name).argtypes
+    return lib
+
+
+@contextlib.contextmanager
+def multileg_library(lib):
+    """The multi-leg wrappers launch the kernels of ``lib`` inside the
+    block (this build's when ``lib`` is None)."""
+    saved = cm._library()
+    if lib is not None:
+        cm._bound = lib
+    try:
+        yield
+    finally:
+        cm._bound = saved
 
 
 def bind_cell_library(lib):
@@ -1852,10 +2269,11 @@ def bind_cell_library(lib):
     return lib
 
 
-def alternatives(sources):
+def alternatives(sources, bind):
     """Build each source with the package's nvcc flags, one nvcc each,
-    started together, into the build directory, and print what ptxas says
-    of its kernels.  [(source, lib)]"""
+    started together, into the build directory, print what ptxas says of
+    its kernels and their instruction mix, and bind it with ``bind``.
+    [(source, lib)]"""
     nvcc = _build._find_nvcc()
     os.makedirs(_build.build_dir(), exist_ok=True)
     procs = []
@@ -1879,7 +2297,8 @@ def alternatives(sources):
             if "registers" in line or ("spill" in line.lower()
                                        and "0 bytes spill" not in line):
                 say("    ptxas:", line.strip())
-        out.append((label, bind_cell_library(ctypes.CDLL(so))))
+        sass_mix(so)
+        out.append((label, bind(ctypes.CDLL(so))))
     return out
 
 
@@ -1899,6 +2318,20 @@ def cells_call(lib, form, q, b, params, shared=False):
     return out
 
 
+def item_cells_call(lib, params, c, p, f, lt, shared, k):
+    """One launch of the K5 cell driver of ``lib`` on a batch."""
+    flags = torch.empty((3, c.shape[0]), dtype=torch.bool, device=DEV)
+    scratch = torch.zeros(c.shape[0] * (lt.shape[0] + 1), dtype=torch.int32,
+                          device=DEV)
+    fp = f.data_ptr()
+    err = lib.legmov_item_cells(
+        lt.data_ptr(), lt.shape[0], c.data_ptr(), p.data_ptr(), c.shape[0],
+        fp, fp + 4, fp + 8, 3, f.shape[0], int(shared), flags.data_ptr(),
+        scratch.data_ptr(), ctypes.byref(params), cmd.stream())
+    check(err == 0, f"legmov_item_cells: CUDA error {err}")
+    return flags
+
+
 def item_call(lib, tab, g, params):
     bits = torch.zeros(tab.shape[0], dtype=torch.int32, device=DEV)
     err = lib.legmov_item(tab.data_ptr(), g[0].data_ptr(), g[1].data_ptr(),
@@ -1908,18 +2341,26 @@ def item_call(lib, tab, g, params):
     return bits
 
 
-def compare_builds(label, lib, here, batches, k5_in):
-    """K5, K6a, K6b and K6c of ``lib`` against this build's (``here``) on
-    the same inputs: equal outputs, then times in turns (other, this, this,
-    other), CUDA events, median of 20 launches each (K6c: of 5)."""
+def compare_builds(label, lib, here, batches, k5_in, k5c_in):
+    """K5 (both forms, the cell driver where ``lib`` has one), K6a, K6b and
+    K6c of ``lib`` against this build's (``here``) on the same inputs: equal
+    outputs, then times in turns (other, this, this, other), CUDA events,
+    median of 20 launches each (K6c: of 5)."""
     say(f"phase 10: {label} against this build")
-    cases = [("K5", None, "item", False),
+    # the last entry: K6a's `shared` argument, or a cell-driver batch
+    cases = [(f"K5 cell driver, {tag}", None, "item_cells", a)
+             for tag, a in (k5c_in[1] if hasattr(lib, "legmov_item_cells")
+                            else [])]
+    cases += [("K5", None, "item", False),
              ("K6a", "per-leg", "quat_major", False),
              ("K6b", "shared", "shared", False),
              ("K6a shared branch", "shared", "quat_major", True),
              ("K6c", "per-leg", "cm_perleg", False)]
-    for kid, mode, form, shared in cases:
-        if form == "item":
+    for kid, mode, form, extra in cases:
+        if form == "item_cells":
+            other = lambda: item_cells_call(lib, k5c_in[0], *extra)
+            this = lambda: item_cells_call(here, k5c_in[0], *extra)
+        elif form == "item":
             tab, g, params = k5_in
             other = lambda: item_call(lib, tab, g, params)
             this = lambda: item_call(here, tab, g, params)
@@ -1927,8 +2368,8 @@ def compare_builds(label, lib, here, batches, k5_in):
             b = batches[mode]
             q = b["queue"]
             params = cmd.item_params(b["consts"], b["k"])
-            other = lambda: cells_call(lib, form, q, b, params, shared)
-            this = lambda: cells_call(here, form, q, b, params, shared)
+            other = lambda: cells_call(lib, form, q, b, params, extra)
+            this = lambda: cells_call(here, form, q, b, params, extra)
         check(torch.equal(other(), this()),
               f"{label}: {kid} gives other words than this build's")
         reps = 5 if form == "cm_perleg" else 20
@@ -2120,6 +2561,12 @@ def main(argv=None):
                     help="phase 10 also times the kernels built from this "
                     "source (an earlier cell_kernels.cu), in turns with "
                     "this tree's; repeatable")
+    ap.add_argument("--against-multileg", action="append", default=[],
+                    metavar="MULTILEG_KERNELS_CU",
+                    help="phases 5 and 7 also time K3 (on `cli map --solver "
+                    "csr` and alone) and K4 (alone) built from this source "
+                    "(an earlier multileg_kernels.cu), in turns with this "
+                    "tree's; repeatable")
     args = ap.parse_args(argv)
     on = {int(p) for p in args.phases.split(",")} | {1}
     whole = on >= set(range(1, 12)) and not args.quick
@@ -2146,7 +2593,7 @@ def main(argv=None):
             with contextlib.redirect_stdout(io.StringIO()):
                 cli.main(["prepare", "--dir", data, "--pix-size", "20"])
         if 5 in on:
-            map_launches = phase_cli_map(data)
+            map_launches = phase_cli_map(data, args.against_multileg)
             took(5)
         if 8 in on:
             solve = phase_cli_solve(data, args.quick)
@@ -2176,7 +2623,7 @@ def main(argv=None):
         scale = phase_map_scale()
         took(6)
     if 7 in on:
-        row3, row4 = phase_multileg_kernels(scale)
+        row3, row4 = phase_multileg_kernels(scale, args.against_multileg)
         took(7)
 
     say(smi)
@@ -2255,9 +2702,18 @@ def main(argv=None):
                   map_scale_poses_per_s=scale["poses_per_s"],
                   map_scale_queue_share=scale["queue_share"],
                   **on_paths("csr_window")),
+        # the item form ([P, W] items x candidate rows): since the cell
+        # driver took over the dense solve it is on no path (as K6c)
         cell_entry("legmov_item_kernel", "item",
+                   "legmov_tpu/ops/pallas_multileg_dist.py:533", 0,
+                   forms=["legmov_item_kernel", "legmov_item_cells_kernel"]),
+        cell_entry("legmov_item_cells_kernel", "item_cells",
                    "legmov_tpu/ops/pallas_multileg_dist.py:533",
-                   solve_launches_["item"], **on_paths("item")),
+                   solve_launches_["item_cells"],
+                   forms=["legmov_item_cells_kernel",
+                          "legmov_item_cells_shared_kernel"],
+                   occupancy_shared_rule=occupancy["item_cells_shared"],
+                   **on_paths("item_cells")),
         cell_entry("legmov_cell_quat_major_kernel", "cell_quat_major",
                    "legmov_tpu/ops/csr_cell_eval.py:1192",
                    solve_launches_["cell_quat_major"],

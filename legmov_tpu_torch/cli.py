@@ -230,7 +230,7 @@ def cmd_solve(args) -> None:
     counters = {
         "distance_launches": ck.distance_kernel,
         "distance_cells_launches": ck.distance_cells_kernel,
-        "item_launches": cmd.multileg_distance_kernel,
+        "item_cells_launches": cmd.item_cells_kernel,
         "cell_quat_major_launches": cce.cell_eval_quat_major,
         "cell_shared_launches": cce.cell_eval_shared,
         "cell_cm_perleg_launches": cce.cell_eval_cm_perleg,

@@ -23,9 +23,10 @@
 // holds it, K5, K6a and K6b in a layout of their own (below) that gives a
 // circle or a corner in two 16-byte loads.
 //
-// One device function under four kernels: item_head + item_leg are the fused
+// One device function under five kernels: item_head + item_leg are the fused
 // validity_child item (several_leg_octree.cu:19-151), one body over either
-// layout; K5 runs it over dense candidate rows, K6a/K6b/K6c over per-cell
+// layout; K5 runs it over dense candidates (the item form over candidate
+// rows, the cell driver over a batch's footholds), K6a/K6b/K6c over per-cell
 // queues of CSR chunks.  K5, K6a and K6b inline the item, so no call saves
 // live registers around each leg (out of line they ran 10-20 % slower); K6c
 // calls it out of line, which is faster there.
@@ -117,15 +118,11 @@ __device__ __forceinline__ bool angle_lt(float ax, float ay, float c, float s,
     return theta_neg ? (below & ng) : (below | ng);
 }
 
-// candidate relative to the item, un-rotated by the item's quaternion, and
-// the elongated-box prefilter on the unrotated relative vector; T = the
-// item's table row
-__device__ __forceinline__ bool item_head(const float* T, float x, float y,
-                                          float z, float& vx, float& vy,
-                                          float& vz) {
-    const float rx = x - T[4];
-    const float ry = y - T[5];
-    const float rz = z - T[6];
+// the relative vector r = candidate - item position, un-rotated by the
+// item's quaternion T[0..3] (its conjugate rotation)
+__device__ __forceinline__ void item_unrotate(const float* T, float rx,
+                                              float ry, float rz, float& vx,
+                                              float& vy, float& vz) {
     const float w = T[0];
     const float ux = -T[1];
     const float uy = -T[2];
@@ -136,8 +133,27 @@ __device__ __forceinline__ bool item_head(const float* T, float x, float y,
     vx = rx + w * tx + (uy * tz - uz * ty);
     vy = ry + w * ty + (uz * tx - ux * tz);
     vz = rz + w * tz + (ux * ty - uy * tx);
-    return (rx > -T[13]) & (rx <= T[13]) & (ry > -T[14]) & (ry <= T[14]) &
-           (rz > -T[15]) & (rz <= T[15]);
+}
+
+// the elongated-box prefilter on the unrotated relative vector, half-extents
+// (e0, e1, e2); NaN and inf components fail it
+__device__ __forceinline__ bool in_box(float rx, float ry, float rz, float e0,
+                                       float e1, float e2) {
+    return (rx > -e0) & (rx <= e0) & (ry > -e1) & (ry <= e1) & (rz > -e2) &
+           (rz <= e2);
+}
+
+// candidate relative to the item, un-rotated by the item's quaternion, and
+// the elongated-box prefilter on the unrotated relative vector; T = the
+// item's table row
+__device__ __forceinline__ bool item_head(const float* T, float x, float y,
+                                          float z, float& vx, float& vy,
+                                          float& vz) {
+    const float rx = x - T[4];
+    const float ry = y - T[5];
+    const float rz = z - T[6];
+    item_unrotate(T, rx, ry, rz, vx, vy, vz);
+    return in_box(rx, ry, rz, T[13], T[14], T[15]);
 }
 
 // entry i of a row in the kernels' layout, from `row`, a row of the table
@@ -499,7 +515,9 @@ __device__ __forceinline__ int block_sum(int v, unsigned* red) {
 }
 
 // ---------------------------------------------------------------------------
-// K5  fused multi-leg distance item over dense candidates
+// K5  fused multi-leg distance item over dense candidates: the item form
+//     ([P, W] items x candidate rows; the solver's dense path runs the cell
+//     driver below)
 //
 // Replaces the Pallas kernel legmov_tpu/ops/pallas_multileg_dist.py
 // make_multileg_distance_kernel (body `kernel`, item from make_item_parts).
@@ -568,6 +586,345 @@ legmov_item_kernel(const float* __restrict__ tab, const float* __restrict__ gx,
     if ((threadIdx.x & 31) == 0 && bits) atomicOr(&bits_sh, bits);
     __syncthreads();
     if (threadIdx.x == 0 && bits_sh) atomicOr(out_bits + item, (int)bits_sh);
+}
+
+// ---------------------------------------------------------------------------
+// K5, cell driver: the orientation-active levels of `cli solve --candidates
+// dense`, one launch a batch
+//
+// Replaces the same Pallas kernel as legmov_item_kernel, with what XLA fused
+// around it in legmov_tpu/models/hier_solver.py _eval_cells (the scan over
+// foothold chunks, the any over orientations, the per-leg rule's fold): for
+// a batch of cells, the level's S orientations and the batch's footholds it
+// gives each cell's (valid, edge, leaf) flags.  Per (cell, foothold) pair:
+// r = f - c and the elongated-box prefilter, once; per pair inside the box
+// and orientation: the un-rotation by the orientation's quaternion, then
+// per leg the item's leg pipeline (item_leg), in the plain version's order
+// (ops/cuda_multileg_dist.py item_cells_plain), so the flags are its bits.
+//
+// Bound on this card: operations.  9 per (cell, foothold) pair for the box
+// test (3 subtractions, 6 compares), then per pair inside the box and
+// orientation 30 for the un-rotation and 860 per leg, counted over the
+// work that decides the flags: a walk over each cell's footholds in order
+// that stops settled work as below (item_cells_need in
+// ops/cuda_multileg_dist.py).  The bytes (S table rows, the cells, a
+// foothold subset of a few MB at most, three bytes a cell out) are noise.
+//
+// Design.  One warp a cell, IC_WARPS cells a block.  The block stages the S
+// rows in the kernels' layout in shared memory once (the leg blocks depend
+// on the orientation only; the cell's centre and parent-valid stay in
+// registers) and streams the footholds through shared memory in
+// double-buffered cp.async tiles, as K2's cell driver does.  Each lane
+// box-tests one foothold of the tile and a ballot writes the in-box vectors
+// into the warp's ring, so the box test runs once per (cell, foothold) and
+// the S x L leg pipelines of a pair run on full warps (the last partial
+// batch aside).  Per-leg rule: per orientation the warp keeps the 3L run
+// bits in shared memory (OR-ed over its lanes after each batch of 32 pairs)
+// and skips a leg whose bits are settled (any ok and ok & !crossed seen,
+// so ok | crossed too: nothing it gives can change them); the fold to valid
+// and edge is made once every foothold is seen.  Shared rule: a lane ORs
+// (valid, edge, leaf) over its pairs and orientations; once the warp holds
+// all three the cell is decided and its warp skips the rest, and once it
+// holds edge (and the cell has no valid parent) the legs of an orientation
+// stop as soon as no lane's pair can still reach k (K6b's leg chain).  One
+// kernel a rule (each its own registers).  A cell's footholds are shared by
+// `splits` blocks (enough for one or two waves of resident warps, at most
+// one a tile); their bits meet in a scratch row with atomicOr and the split
+// that arrives last writes the flags.
+// ---------------------------------------------------------------------------
+
+#define IC_WARPS 8    // cells a block, one warp each
+#define IC_TILE 256   // footholds a shared-memory stage
+#define IC_RING 64    // per-warp ring of in-box vectors
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+    const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+                 "l"(src)
+                 : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_prior() {
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// footholds [lo, lo + IC_TILE) into one stage ([3][IC_TILE]), one copy group
+__device__ __forceinline__ void stage_feet(float* dst, const float* xs,
+                                           const float* ys, const float* zs,
+                                           long long stride, long long lo,
+                                           long long n) {
+    for (int i = threadIdx.x; i < IC_TILE; i += blockDim.x) {
+        const long long f = lo + i;
+        if (f < n) {
+            cp_async4(dst + i, xs + f * stride);
+            cp_async4(dst + IC_TILE + i, ys + f * stride);
+            cp_async4(dst + 2 * IC_TILE + i, zs + f * stride);
+        }
+    }
+    cp_async_commit();
+}
+
+// dynamic shared memory of a block: S rows, two foothold stages, the rings,
+// S run words a warp
+static size_t item_cells_bytes(int n_legs, int S) {
+    return 4 * ((size_t)S * CK_KW(n_legs) + 6 * IC_TILE +
+                IC_WARPS * 3 * IC_RING + (size_t)IC_WARPS * S);
+}
+
+// one warp's cell; SHARED: the shared rule, else the per-leg rule
+template <bool SHARED>
+__device__ __forceinline__ void item_cells(
+    const float* __restrict__ legtab, int S, const float* __restrict__ centers,
+    const unsigned char* __restrict__ parent_valid, long long n_cells,
+    const float* __restrict__ xs, const float* __restrict__ ys,
+    const float* __restrict__ zs, long long f_stride, long long n_feet,
+    unsigned char* __restrict__ flags, unsigned* __restrict__ scratch,
+    const ItemParams& P) {
+    extern __shared__ __align__(16) unsigned char smem[];
+    const int L = P.n_legs, k = P.k;
+    const int kw = CK_KW(L);
+    const unsigned Lmask = (1u << L) - 1u;
+    float* rows = reinterpret_cast<float*>(smem);
+    float* tile = rows + S * kw;               // [2][3][IC_TILE]
+    float* rings = tile + 6 * IC_TILE;         // [IC_WARPS][3][IC_RING]
+    unsigned* runs =
+        reinterpret_cast<unsigned*>(rings + IC_WARPS * 3 * IC_RING);
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const unsigned below = (1u << lane) - 1u;
+    for (int i = threadIdx.x; i < S * kw; i += blockDim.x) {
+        const int q = i / kw;
+        rows[i] = staged_value(legtab + (long long)q * P.table_width,
+                               i - q * kw);
+    }
+    unsigned* run = runs + warp * S;  // per-leg rule: 3L run bits a row
+    for (int q = lane; q < S; q += 32) run[q] = 0u;
+    const long long cell = (long long)blockIdx.x * IC_WARPS + warp;
+    const bool live = cell < n_cells;
+    float cx = 0.0f, cy = 0.0f, cz = 0.0f;
+    bool pv = false;
+    if (live) {
+        cx = centers[cell * 3];
+        cy = centers[cell * 3 + 1];
+        cz = centers[cell * 3 + 2];
+        pv = parent_valid[cell] != 0;
+    }
+    float* rg = rings + warp * 3 * IC_RING;
+    int head = 0, cnt = 0;
+    unsigned acc = 0u;   // shared rule: valid, edge, leaf of this lane's pairs
+    bool done = !live;   // warp-uniform: the cell's flags can change no more
+    bool chain = false;  // warp-uniform: shared rule, edge settled, no valid
+                         // parent
+
+    // the orientations and legs of one in-box pair a lane (`act`); call with
+    // the whole warp
+    auto pair = [&](bool act, float rx, float ry, float rz) {
+        bool settled_all = true;
+        for (int q = 0; q < S; ++q) {
+            const float* T = rows + q * kw;
+            if (SHARED) {
+                float vx = 0.0f, vy = 0.0f, vz = 0.0f;
+                if (act) item_unrotate(T, rx, ry, rz, vx, vy, vz);
+                int rc = 0, cc = 0;
+                bool cut = false;
+                for (int l = 0; l < L; ++l) {
+                    if (act) {
+                        const unsigned r =
+                            item_leg<Staged>(P, l, T, vx, vy, vz);
+                        rc += (r & 1u) ? 1 : 0;
+                        cc += (r & 2u) ? 1 : 0;
+                    }
+                    // the leg chain (K6b's): with edge settled and no valid
+                    // parent only valid and leaf are left to find, so the
+                    // legs stop once no lane's pair can still reach k; such
+                    // a pair gives neither
+                    if (chain && l < L - 1 &&
+                        !__any_sync(CK_FULL, act & (rc + (L - 1 - l) >= k))) {
+                        cut = true;
+                        break;
+                    }
+                }
+                const bool iv = (rc >= k) | pv;
+                const bool ie = cc > L - k;
+                if (act && !cut)
+                    acc |= (iv ? 1u : 0u) | (ie ? 2u : 0u) |
+                           ((iv & !ie) ? 4u : 0u);
+            } else {
+                const unsigned r0 = run[q];
+                const unsigned m = ~(r0 & (r0 >> L)) & Lmask;
+                if (m == 0u) continue;
+                unsigned bits = 0u;
+                if (act) {
+                    float vx, vy, vz;
+                    item_unrotate(T, rx, ry, rz, vx, vy, vz);
+                    for (int l = 0; l < L; ++l) {
+                        if (!((m >> l) & 1u)) continue;
+                        const unsigned r =
+                            item_leg<Staged>(P, l, T, vx, vy, vz);
+                        const bool ok = r & 1u, crossed = (r >> 1) & 1u;
+                        bits |= (ok ? 1u : 0u) << l;
+                        bits |= ((ok & !crossed) ? 1u : 0u) << (L + l);
+                        bits |= ((ok | crossed) ? 1u : 0u) << (2 * L + l);
+                    }
+                }
+                const unsigned now = r0 | __reduce_or_sync(CK_FULL, bits);
+                __syncwarp();
+                if (lane == 0) run[q] = now;
+                __syncwarp();
+                settled_all &= (now & (now >> L) & Lmask) == Lmask;
+            }
+        }
+        if (SHARED) {
+            const unsigned seen = __reduce_or_sync(CK_FULL, acc);
+            done = seen == 7u;
+            chain = ((seen & 2u) != 0u) & !pv;
+        } else {
+            done = settled_all;
+        }
+    };
+
+    // this block's share of the footholds: tiles y, y + splits, ...
+    const long long n_tiles = (n_feet + IC_TILE - 1) / IC_TILE;
+    const long long step = gridDim.y;
+    long long t = blockIdx.y;
+    if (t < n_tiles) stage_feet(tile, xs, ys, zs, f_stride, t * IC_TILE, n_feet);
+    for (int j = 0; t < n_tiles; ++j, t += step) {
+        if (t + step < n_tiles)
+            stage_feet(tile + ((j + 1) & 1) * 3 * IC_TILE, xs, ys, zs,
+                       f_stride, (t + step) * IC_TILE, n_feet);
+        else
+            cp_async_commit();  // an empty group: wait_group 1 stays right
+        cp_async_wait_prior();
+        __syncthreads();  // tile t is in shared memory (and the rows, at j 0)
+        if (!done) {
+            const float* F = tile + (j & 1) * 3 * IC_TILE;
+            const float e0 = rows[13], e1 = rows[14], e2 = rows[15];
+            const long long left = n_feet - t * IC_TILE;
+            const int n = left < IC_TILE ? (int)left : IC_TILE;
+            for (int base = 0; base < n && !done; base += 32) {
+                const int i = base + lane;
+                float rx = 0.0f, ry = 0.0f, rz = 0.0f;
+                bool p = false;
+                if (i < n) {
+                    rx = F[i] - cx;
+                    ry = F[IC_TILE + i] - cy;
+                    rz = F[2 * IC_TILE + i] - cz;
+                    p = in_box(rx, ry, rz, e0, e1, e2);
+                }
+                const unsigned bal = __ballot_sync(CK_FULL, p);
+                if (p) {
+                    const int s =
+                        (head + cnt + __popc(bal & below)) & (IC_RING - 1);
+                    rg[s] = rx;
+                    rg[IC_RING + s] = ry;
+                    rg[2 * IC_RING + s] = rz;
+                }
+                cnt += __popc(bal);
+                if (cnt >= 32) {
+                    __syncwarp();
+                    const int s = (head + lane) & (IC_RING - 1);
+                    pair(true, rg[s], rg[IC_RING + s], rg[2 * IC_RING + s]);
+                    head = (head + 32) & (IC_RING - 1);
+                    cnt -= 32;
+                    __syncwarp();  // the slots just read may be written next
+                }
+            }
+        }
+        __syncthreads();  // every warp is through tile t, whose stage is
+                          // refilled next
+    }
+    cp_async_wait_all();
+    if (!done && cnt > 0) {
+        __syncwarp();
+        const int s = (head + lane) & (IC_RING - 1);
+        pair(lane < cnt, rg[s], rg[IC_RING + s], rg[2 * IC_RING + s]);
+    }
+    if (!live) return;
+    __syncwarp();  // every lane sees the run words, with no footholds too
+    unsigned all = SHARED ? __reduce_or_sync(CK_FULL, acc) : 0u;
+    if (gridDim.y > 1) {
+        // the cell's bits from every split meet in its scratch row (S run
+        // words or one flags word, then the arrival count); the split that
+        // arrives last takes them and leaves the row zeroed
+        unsigned* sc = scratch + cell * (S + 1);
+        if (SHARED) {
+            if (lane == 0 && all) atomicOr(sc, all);
+        } else {
+            for (int q = lane; q < S; q += 32)
+                if (run[q]) atomicOr(sc + q, run[q]);
+        }
+        __threadfence();
+        __syncwarp();
+        unsigned last = 0u;
+        if (lane == 0) last = atomicAdd(sc + S, 1u) == gridDim.y - 1;
+        if (!__shfl_sync(CK_FULL, last, 0)) return;
+        __threadfence();
+        if (SHARED) {
+            all = __shfl_sync(CK_FULL, lane == 0 ? atomicExch(sc, 0u) : 0u, 0);
+        } else {
+            for (int q = lane; q < S; q += 32) run[q] = atomicExch(sc + q, 0u);
+        }
+        if (lane == 0) sc[S] = 0u;
+        __syncwarp();
+    }
+    bool v, e, lf;
+    if (SHARED) {
+        v = all & 1u;
+        e = (all >> 1) & 1u;
+        lf = (all >> 2) & 1u;
+    } else {
+        bool a0 = false, a1 = false;
+        for (int q = 0; q < S; ++q) {
+            const unsigned r = run[q];
+            a0 |= __popc(r & Lmask) >= k;
+            a1 |= (__popc((r >> L) & Lmask) < k) &
+                  (__popc((r >> (2 * L)) & Lmask) >= k);
+        }
+        v = a0 | pv;
+        e = a1;
+        lf = v & !e;
+    }
+    if (lane == 0) {
+        flags[cell] = (unsigned char)v;
+        flags[n_cells + cell] = (unsigned char)e;
+        flags[2 * n_cells + cell] = (unsigned char)lf;
+    }
+}
+
+// Launch shape, from timing builds in turns on phase 10's batch and on real
+// batches of the dense solves on an H100: the per-leg rule at two blocks an
+// SM (128 registers, 104 B of spills) is 1.15x one block's speed; the
+// shared rule at one block (162 registers, no spills) is 1.10x two blocks'
+// on phase 10's batch and 0.96x on a real batch.  One kernel a rule, each
+// with its own call sites and registers: one kernel for both rules (one
+// call site, the shared rule's votes in the leg loop) ran the per-leg rule
+// 10-12 % slower.
+#define IC_PERLEG_BLOCKS 2
+#define IC_SHARED_BLOCKS 1
+
+#define IC_ARGS                                                               \
+    const float* __restrict__ legtab, int S,                                  \
+        const float* __restrict__ centers,                                    \
+        const unsigned char* __restrict__ parent_valid, long long n_cells,    \
+        const float* __restrict__ xs, const float* __restrict__ ys,           \
+        const float* __restrict__ zs, long long f_stride, long long n_feet,   \
+        unsigned char* __restrict__ flags, unsigned* __restrict__ scratch,    \
+        const __grid_constant__ ItemParams P
+
+extern "C" __global__ void __launch_bounds__(IC_WARPS * 32, IC_PERLEG_BLOCKS)
+legmov_item_cells_kernel(IC_ARGS) {
+    item_cells<false>(legtab, S, centers, parent_valid, n_cells, xs, ys, zs,
+                      f_stride, n_feet, flags, scratch, P);
+}
+
+extern "C" __global__ void __launch_bounds__(IC_WARPS * 32, IC_SHARED_BLOCKS)
+legmov_item_cells_shared_kernel(IC_ARGS) {
+    item_cells<true>(legtab, S, centers, parent_valid, n_cells, xs, ys, zs,
+                     f_stride, n_feet, flags, scratch, P);
 }
 
 // ---------------------------------------------------------------------------
@@ -1153,6 +1510,80 @@ extern "C" int legmov_item(const float* tab, const float* gx, const float* gy,
     return (int)cudaGetLastError();
 }
 
+static cudaError_t allow_smem(const void* fn, size_t bytes);
+
+// Splits of the foothold range for a batch of `n_cells` cells and `n_feet`
+// footholds: enough blocks for `waves` waves of the warps the card holds at
+// once, at most one a tile.  Each split settles legs and meets the shared
+// rule's exit on its own, so more splits repeat work, and fewer leave SMs
+// idle behind cells of unequal work.  Timed in turns on an H100 (against
+// four waves, then against the per-leg rule's two): the per-leg rule at two
+// waves 1.05x four's speed, 1.00-1.03x one's and three's; the shared rule
+// at one wave 1.04-1.37x two's, which were 1.0-1.2x four's; eight waves
+// 0.77-1.0x four's.
+#define IC_PERLEG_WAVES 2
+#define IC_SHARED_WAVES 1
+
+static long long item_cells_splits(const void* fn, int waves,
+                                   long long n_cells, long long n_feet,
+                                   size_t bytes) {
+    int dev = 0, sms = 0, nb = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&nb, fn, IC_WARPS * 32,
+                                                      bytes) != cudaSuccess ||
+        sms <= 0 || nb <= 0)
+        return 0;
+    const long long resident = (long long)sms * nb * IC_WARPS;
+    const long long n_tiles = (n_feet + IC_TILE - 1) / IC_TILE;
+    long long s = (waves * resident + n_cells - 1) / n_cells;
+    if (s > n_tiles) s = n_tiles;
+    if (s > 65535) s = 65535;
+    return s < 1 ? 1 : s;
+}
+
+// flags: uint8 [3, n_cells] (valid, edge, leaf rows).  legtab: the level's
+// [S, table_width] rows (quaternion and level header; the centre and
+// parent-valid slots are not read).  Footholds x, y, z with stride f_stride
+// (3 for an [F, 3] array read in place).  scratch: uint32 [n_cells, S + 1],
+// zero, which the kernel leaves zero.
+extern "C" int legmov_item_cells(const float* legtab, int S,
+                                 const float* centers,
+                                 const unsigned char* parent_valid,
+                                 long long n_cells, const float* x,
+                                 const float* y, const float* z,
+                                 long long f_stride, long long n_feet,
+                                 int shared, unsigned char* flags,
+                                 unsigned* scratch, const ItemParams* params,
+                                 void* stream) {
+    if (n_cells <= 0) return 0;
+    if (!params_ok(params) || S < 1 || S > CK_MAX_QUATS || n_feet < 0 ||
+        scratch == nullptr)
+        return (int)cudaErrorInvalidValue;
+    const size_t bytes = item_cells_bytes(params->n_legs, S);
+    const void* fn = shared ? (const void*)legmov_item_cells_shared_kernel
+                            : (const void*)legmov_item_cells_kernel;
+    const cudaError_t e = allow_smem(fn, bytes);
+    if (e != cudaSuccess) return (int)e;
+    const long long splits = item_cells_splits(
+        fn, shared ? IC_SHARED_WAVES : IC_PERLEG_WAVES, n_cells, n_feet, bytes);
+    if (splits < 1) return (int)cudaErrorInvalidConfiguration;
+    const dim3 grid((unsigned)((n_cells + IC_WARPS - 1) / IC_WARPS),
+                    (unsigned)splits);
+    if (shared)
+        legmov_item_cells_shared_kernel<<<grid, IC_WARPS * 32, bytes,
+                                          (cudaStream_t)stream>>>(
+            legtab, S, centers, parent_valid, n_cells, x, y, z, f_stride,
+            n_feet, flags, scratch, *params);
+    else
+        legmov_item_cells_kernel<<<grid, IC_WARPS * 32, bytes,
+                                   (cudaStream_t)stream>>>(
+            legtab, S, centers, parent_valid, n_cells, x, y, z, f_stride,
+            n_feet, flags, scratch, *params);
+    return (int)cudaGetLastError();
+}
+
 static bool cell_args_ok(long long CH, int S, const ItemParams* p) {
     return params_ok(p) && CH >= 0 && S >= 1 && S <= CK_MAX_QUATS;
 }
@@ -1233,10 +1664,11 @@ extern "C" int legmov_cell_layout(int* param_bytes, int* header,
     return 0;
 }
 
-// How kernel `form` (0 K5, 1 K6a, 2 K6b, 3 K6c) is launched for `n_legs`
-// legs and chunks of `window` elements: registers a thread, local memory a
-// thread (spills and stack), threads and shared memory a block, and the
-// blocks an SM holds at once.
+// How kernel `form` (0 K5, 1 K6a, 2 K6b, 3 K6c, 4 and 5 K5's cell driver
+// under the per-leg and the shared rule) is launched for `n_legs` legs and
+// chunks of `window` elements (forms 4 and 5: `window` orientations):
+// registers a thread, local memory a thread (spills and stack), threads and
+// shared memory a block, and the blocks an SM holds at once.
 extern "C" int legmov_cell_occupancy(int form, int n_legs, int window,
                                      int* regs, int* local_bytes,
                                      int* threads, int* smem_bytes,
@@ -1250,6 +1682,14 @@ extern "C" int legmov_cell_occupancy(int form, int n_legs, int window,
         bytes = cell_block_bytes(n_legs, window, form == 2);
         fn = form == 1 ? (const void*)legmov_cell_quat_major_kernel
                        : (const void*)legmov_cell_shared_kernel;
+    } else if (form == 4 || form == 5) {
+        thr = IC_WARPS * 32;
+        if (n_legs < 1 || n_legs > CK_MAX_LEGS || window < 1 ||
+            window > CK_MAX_QUATS)
+            return (int)cudaErrorInvalidValue;
+        bytes = item_cells_bytes(n_legs, window);
+        fn = form == 4 ? (const void*)legmov_item_cells_kernel
+                       : (const void*)legmov_item_cells_shared_kernel;
     } else if (form == 0) {
         fn = (const void*)legmov_item_kernel;
     } else if (form == 3) {

@@ -84,43 +84,88 @@ __device__ __forceinline__ void unrotate(const float* T, float x, float y,
     vz = rz + w * tz + (ux * ty - uy * tx);
 }
 
-// reachability of leg l for one body-frame candidate; B = the leg's block of
-// the pose's table row
-__device__ __forceinline__ bool leg_reach(const MultilegParams& P, int l,
-                                          const float* B, float vx, float vy,
-                                          float vz) {
+// what the reachability of leg l reads: its static constants (parameter
+// block) and its part of the pose's table row (B)
+struct LegConst {
+    float ca, sa, body, cp, sp, coxa_len, cmax_c, cmax_s, cmin_c, cmin_s;
+    bool gt_possible, lt_possible;
+    bool mid_neg, sat_lo_neg, sat_hi_neg;
+    float mid_c, mid_s, lo_c, lo_s, hi_c, hi_s;
+    float ax[6], ay[6], r2k[6], hi2k[6], lo2k[6];
+    bool fal_low, fal_up, falo_low, falo_up;
+};
+
+__device__ __forceinline__ LegConst load_leg(const MultilegParams& P, int l,
+                                             const float* B) {
+    LegConst K;
+    K.ca = P.ca[l];
+    K.sa = P.sa[l];
+    K.body = P.body[l];
+    K.cp = P.cp[l];
+    K.sp = P.sp[l];
+    K.coxa_len = P.coxa_len[l];
+    K.cmax_c = P.cmax_c[l];
+    K.cmax_s = P.cmax_s[l];
+    K.cmin_c = P.cmin_c[l];
+    K.cmin_s = P.cmin_s[l];
+    K.gt_possible = P.gt_possible[l] != 0;
+    K.lt_possible = P.lt_possible[l] != 0;
+    K.mid_neg = B[ML_MID_NEG] > 0.5f;
+    K.sat_lo_neg = B[ML_SAT_NEG] > 0.5f;
+    K.sat_hi_neg = B[ML_SAT_NEG + 1] > 0.5f;
+    K.mid_c = B[ML_MID_DIR];
+    K.mid_s = B[ML_MID_DIR + 1];
+    K.lo_c = B[ML_SAT_DIR];
+    K.lo_s = B[ML_SAT_DIR + 1];
+    K.hi_c = B[ML_SAT_DIR + 2];
+    K.hi_s = B[ML_SAT_DIR + 3];
+#pragma unroll
+    for (int u = 0; u < 6; ++u) {
+        K.ax[u] = B[ML_AX + u];
+        K.ay[u] = B[ML_AY + u];
+        K.r2k[u] = B[ML_R2K + u];
+        K.hi2k[u] = B[ML_HI2K + u];
+        K.lo2k[u] = B[ML_LO2K + u];
+    }
+    K.fal_low = B[ML_FAL] > 0.5f;
+    K.fal_up = B[ML_FAL + 1] > 0.5f;
+    K.falo_low = B[ML_FAL + 2] > 0.5f;
+    K.falo_up = B[ML_FAL + 3] > 0.5f;
+    return K;
+}
+
+// reachability of one leg (its constants K) for one body-frame candidate
+__device__ __forceinline__ bool leg_reach(const LegConst& K, float vx,
+                                          float vy, float vz) {
     // yaw by -body_angle ("as if leg 0"), then the coxa frame
-    const float x0 = vx * P.ca[l] - vy * P.sa[l];
-    const float y1 = vx * P.sa[l] + vy * P.ca[l];
-    const float px = x0 - P.body[l];
-    const float x1 = px * P.cp[l] - vz * P.sp[l];
-    const float z1 = px * P.sp[l] + vz * P.cp[l];
+    const float x0 = vx * K.ca - vy * K.sa;
+    const float y1 = vx * K.sa + vy * K.ca;
+    const float px = x0 - K.body;
+    const float x1 = px * K.cp - vz * K.sp;
+    const float z1 = px * K.sp + vz * K.cp;
     // mirrored half-plane; the sign bit sees -0.0 and NaN
     const bool flip = (__float_as_uint(x1) >> 31) != 0u;
     const float fx = flip ? -x1 : x1;
     const float fy = flip ? -y1 : y1;
     bool coxa_invalid = false;
-    if (P.gt_possible[l])
-        coxa_invalid = (fy * P.cmax_c[l] - fx * P.cmax_s[l]) > 0.0f;
-    if (P.lt_possible[l])
-        coxa_invalid =
-            coxa_invalid | ((fy * P.cmin_c[l] - fx * P.cmin_s[l]) < 0.0f);
+    if (K.gt_possible)
+        coxa_invalid = (fy * K.cmax_c - fx * K.cmax_s) > 0.0f;
+    if (K.lt_possible)
+        coxa_invalid = coxa_invalid | ((fy * K.cmin_c - fx * K.cmin_s) < 0.0f);
     const float rho = sqrtf(x1 * x1 + y1 * y1);
-    const float xp = (flip ? -rho : rho) - P.coxa_len[l];
+    const float xp = (flip ? -rho : rho) - K.coxa_len;
     const float yp = z1;
 
     // region bits from the pose's threshold directions
     const bool nn = yp >= 0.0f;
-    const bool mid_neg = B[ML_MID_NEG] > 0.5f;
-    const bool crossm = (yp * B[ML_MID_DIR] - xp * B[ML_MID_DIR + 1]) > 0.0f;
-    const bool upper = nn ? (mid_neg | crossm) : (mid_neg & crossm);
-    const bool sat_lo_neg = B[ML_SAT_NEG] > 0.5f;
-    const bool sat_hi_neg = B[ML_SAT_NEG + 1] > 0.5f;
-    const bool cross_lo = (yp * B[ML_SAT_DIR] - xp * B[ML_SAT_DIR + 1]) > 0.0f;
-    const bool cross_hi =
-        (yp * B[ML_SAT_DIR + 2] - xp * B[ML_SAT_DIR + 3]) > 0.0f;
-    const bool gt_lo = nn ? (sat_lo_neg | cross_lo) : (sat_lo_neg & cross_lo);
-    const bool gt_hi = nn ? (sat_hi_neg | cross_hi) : (sat_hi_neg & cross_hi);
+    const bool crossm = (yp * K.mid_c - xp * K.mid_s) > 0.0f;
+    const bool upper = nn ? (K.mid_neg | crossm) : (K.mid_neg & crossm);
+    const bool cross_lo = (yp * K.lo_c - xp * K.lo_s) > 0.0f;
+    const bool cross_hi = (yp * K.hi_c - xp * K.hi_s) > 0.0f;
+    const bool gt_lo =
+        nn ? (K.sat_lo_neg | cross_lo) : (K.sat_lo_neg & cross_lo);
+    const bool gt_hi =
+        nn ? (K.sat_hi_neg | cross_hi) : (K.sat_hi_neg & cross_hi);
     const bool ext = upper ^ (upper ? gt_hi : gt_lo);
 
     // six unique circles once each, both validity polarities
@@ -128,16 +173,14 @@ __device__ __forceinline__ bool leg_reach(const MultilegParams& P, int l,
     bool pos[6], neg[6];
 #pragma unroll
     for (int u = 0; u < 6; ++u) {
-        const float t = q2 + B[ML_AX + u] * xp + B[ML_AY + u] * yp;
-        const bool inside = t <= B[ML_R2K + u];
-        const bool near = (t < B[ML_HI2K + u]) & (t > B[ML_LO2K + u]);
+        const float t = q2 + K.ax[u] * xp + K.ay[u] * yp;
+        const bool inside = t <= K.r2k[u];
+        const bool near = (t < K.hi2k[u]) & (t > K.lo2k[u]);
         pos[u] = inside | near;
         neg[u] = (!inside) | near;
     }
-    const bool fal_low = B[ML_FAL] > 0.5f;
-    const bool fal_up = B[ML_FAL + 1] > 0.5f;
-    const bool falo_low = B[ML_FAL + 2] > 0.5f;
-    const bool falo_up = B[ML_FAL + 3] > 0.5f;
+    const bool fal_low = K.fal_low, fal_up = K.fal_up;
+    const bool falo_low = K.falo_low, falo_up = K.falo_up;
     // the four (region, ext) configurations as boolean algebra on the
     // construction bits.  lower: [inner, fa_neg(att=!fal), excl(rep), wing]
     const bool excl0 = falo_low ? neg[C_WP] : neg[C_FAP];
@@ -161,6 +204,14 @@ __device__ __forceinline__ bool leg_reach(const MultilegParams& P, int l,
     return (!coxa_invalid) & plane_ok;
 }
 
+// the same, reading the constants where they lie; B = the leg's block of
+// the pose's table row
+__device__ __forceinline__ bool leg_reach(const MultilegParams& P, int l,
+                                          const float* B, float vx, float vy,
+                                          float vz) {
+    return leg_reach(load_leg(P, l, B), vx, vy, vz);
+}
+
 // copy one pose's table row to shared memory (all threads of the block)
 __device__ __forceinline__ void load_row(float* T, const float* tab,
                                          long long pose, int width) {
@@ -174,24 +225,56 @@ __device__ __forceinline__ void load_row(float* T, const float* tab,
 // Replaces the Pallas kernel legmov_tpu/ops/pallas_multileg.py
 // make_multileg_kernel (body tile_unrotate, tile_one_leg_bit).
 //
+// Per (pose, candidate): the un-rotation, then every leg's reachability;
+// the output bit of (pose, leg) is the OR over the pose's candidates, ORed
+// into the pose's word, which may start with legs found before the launch
+// (found-legs input).
+//
 // Bound on this card: per candidate it reads 12 bytes and does 33 fp32
 // operations for the un-rotation plus 84 per leg (mount yaw 6, coxa frame 7,
 // two limit tests 8, sqrt and plane coordinate 5, region bits 13, q 3, six
 // circles x 7; leg_flops in ops/cuda_multileg.py): 369 for four legs, 537
 // for six.  At 3.35 TB/s and 67 TFLOP/s that is 3.6 ps against 5.5 to 8.0 ps
 // a candidate: operations bound it, and with no multiply-add fused the real
-// ceiling is half the peak at best.
+// ceiling is half the peak at best.  A leg once found needs no more work
+// for its pose, so what a launch needs depends on its data: a walk over
+// each pose's candidates in order up to each missing leg's first hit, the
+// padding read but not evaluated (multileg_need in ops/cuda_multileg.py).
 //
 // Design: one block per (pose, slab of candidates), so that few poses with
 // many candidates still fill the card.  The pose's table row goes to shared
-// memory once; threads stride over the slab with coalesced reads of gx/gy/gz,
-// keep an L-bit register of hits and skip a leg they have already hit (the
-// output is a pure OR, so this changes no bit); one warp OR, one shared OR,
-// one atomicOr per block into the pose's word.  The TPU form's [8, C] tile,
-// its cap on C and its padding of the pose axis are not carried over.
+// memory once.  A warp walks tiles of 32 x ML_R candidates (tile w, w +
+// warps, ..., so the block sweeps its slab front to back), a thread holding
+// ML_R of them: their un-rotations first, then leg by leg the leg's
+// constants are loaded once into registers and its reachability runs on the
+// ML_R candidates (independent chains); a warp vote per (tile, leg) finds a
+// hit.  A candidate out of every leg's reach (ML_FAR: the driver's padding)
+// is known to hit nothing, and a tile of them is skipped.  The block keeps
+// the legs found so far in one shared word (seeded from the pose's output
+// word, which holds the found-legs input and what other blocks of the pose
+// have found): a warp reads it at each tile and skips found legs, and a
+// tile with every leg found ends the warp's walk.
+// The output is a pure OR, so a stale read only costs work, never a bit;
+// no barrier is needed inside the walk.  One atomicOr a block into the
+// pose's word.  The TPU form's [8, C] tile, its cap on C and its padding of
+// the pose axis are not carried over.
 // ---------------------------------------------------------------------------
 
-extern "C" __global__ void __launch_bounds__(ML_BLOCK)
+// Candidates a thread holds in a tile: two.  Timed in turns on an H100:
+// 1.6x four's speed at [2048, 8192], where legs are found in the first
+// tiles, and 1.18x on `cli map --solver csr`'s launches; one is 1.3x faster
+// at [2048, 8192] but 1.16x slower on the map's launches; a cap of three
+// blocks an SM 1.06-1.11x slower.
+#define ML_R 2
+// A candidate this far (mm) from the pose's body in some axis, or infinitely
+// far, reaches no leg: its plane point lies some 1e16 mm^2 beyond every
+// circle's threshold (oriented_tables in ops/cuda_multileg.py refuses a leg
+// whose circles reach 1e5 mm from the body), so every circle test is false
+// and so is every region's validity.  The CSR driver pads its windows with
+// such candidates (SENTINEL = 1e9).
+#define ML_FAR 1e8f
+
+extern "C" __global__ void __launch_bounds__(ML_BLOCK, 2)
 legmov_multileg_kernel(const float* __restrict__ tab,
                        const float* __restrict__ gx,
                        const float* __restrict__ gy,
@@ -199,10 +282,12 @@ legmov_multileg_kernel(const float* __restrict__ tab,
                        long long slab, int* __restrict__ out_bits,
                        const __grid_constant__ MultilegParams P) {
     __shared__ float T[ML_MAX_W];
-    __shared__ unsigned hits_sh;
+    __shared__ unsigned found_sh;
     const long long pose = blockIdx.x;
+    const int L = P.n_legs;
+    const unsigned all = (1u << L) - 1u;
     load_row(T, tab, pose, P.table_width);
-    if (threadIdx.x == 0) hits_sh = 0u;
+    if (threadIdx.x == 0) found_sh = (unsigned)out_bits[pose] & all;
     __syncthreads();
 
     const long long lo = (long long)blockIdx.y * slab;
@@ -210,20 +295,47 @@ legmov_multileg_kernel(const float* __restrict__ tab,
     const float* x = gx + pose * C;
     const float* y = gy + pose * C;
     const float* z = gz + pose * C;
-    unsigned hits = 0u;
-    for (long long c = lo + threadIdx.x; c < hi; c += blockDim.x) {
-        float vx, vy, vz;
-        unrotate(T, x[c], y[c], z[c], vx, vy, vz);
-        for (int l = 0; l < P.n_legs; ++l) {
-            if ((hits >> l) & 1u) continue;
-            if (leg_reach(P, l, T + ML_HDR + l * ML_LEG_BLOCK, vx, vy, vz))
-                hits |= 1u << l;
+    const int lane = threadIdx.x & 31;
+    const long long tile = 32 * ML_R;
+    const long long stride = (long long)(blockDim.x >> 5) * tile;
+    volatile unsigned* found_v = &found_sh;
+    for (long long t0 = lo + (long long)(threadIdx.x >> 5) * tile; t0 < hi;
+         t0 += stride) {
+        // the legs found so far, the same in every lane
+        unsigned found = __shfl_sync(0xffffffffu, *found_v, 0);
+        if (found == all) break;
+        float vx[ML_R], vy[ML_R], vz[ML_R];
+        bool live[ML_R];
+        bool any = false;
+#pragma unroll
+        for (int r = 0; r < ML_R; ++r) {
+            const long long c = t0 + r * 32 + lane;
+            const long long cc = c < hi ? c : lo;
+            const float px = x[cc], py = y[cc], pz = z[cc];
+            const bool far = (fabsf(px - T[4]) > ML_FAR) |
+                             (fabsf(py - T[5]) > ML_FAR) |
+                             (fabsf(pz - T[6]) > ML_FAR);
+            live[r] = (c < hi) & !far;
+            any |= live[r];
+            unrotate(T, px, py, pz, vx[r], vy[r], vz[r]);
+        }
+        // a tile of padding (or of candidates out of reach) costs its loads
+        if (!__any_sync(0xffffffffu, any)) continue;
+        for (int l = 0; l < L; ++l) {
+            if ((found >> l) & 1u) continue;
+            const LegConst K = load_leg(P, l, T + ML_HDR + l * ML_LEG_BLOCK);
+            bool hit = false;
+#pragma unroll
+            for (int r = 0; r < ML_R; ++r)
+                hit = hit | (live[r] & leg_reach(K, vx[r], vy[r], vz[r]));
+            if (__any_sync(0xffffffffu, hit)) {
+                found |= 1u << l;
+                if (lane == 0) atomicOr(&found_sh, 1u << l);
+            }
         }
     }
-    hits = __reduce_or_sync(0xffffffffu, hits);
-    if ((threadIdx.x & 31) == 0 && hits) atomicOr(&hits_sh, hits);
     __syncthreads();
-    if (threadIdx.x == 0 && hits_sh) atomicOr(out_bits + pose, (int)hits_sh);
+    if (threadIdx.x == 0 && found_sh) atomicOr(out_bits + pose, (int)found_sh);
 }
 
 // ---------------------------------------------------------------------------
@@ -326,6 +438,8 @@ static int sm_count() {
     return sms;
 }
 
+// out_bits: int32 [P], the found-legs input (bit l = leg l), which the
+// launch ORs its hits into
 extern "C" int legmov_multileg(const float* tab, const float* gx,
                                const float* gy, const float* gz, long long P,
                                long long C, int* out_bits,
@@ -335,8 +449,8 @@ extern "C" int legmov_multileg(const float* tab, const float* gx,
         params->table_width > ML_MAX_W)
         return (int)cudaErrorInvalidValue;
     // slabs of candidates per pose: enough blocks to fill the card eight
-    // times over, but no slab below four candidates a thread
-    const long long min_slab = 4LL * ML_BLOCK;
+    // times over, but no slab below one tile a warp
+    const long long min_slab = (long long)ML_R * ML_BLOCK;
     long long slabs = ((long long)sm_count() * 8 + P - 1) / P;
     const long long max_slabs = (C + min_slab - 1) / min_slab;
     if (slabs > max_slabs) slabs = max_slabs;

@@ -40,7 +40,8 @@ Evaluators, all with the contract of :func:`_eval_cells`:
   kernel (ops/cuda_kernels.py ``distance_cells_kernel``), one launch a
   batch;
 * ops/cuda_multileg_dist.py ``make_cell_eval_rot`` — orientation-active
-  levels on the fused item kernel over dense candidate chunks;
+  levels on K5's cell driver (``item_cells_kernel``) over the batch's dense
+  footholds, one launch a batch;
 * ops/csr_cell_eval.py ``make_csr_cell_eval`` — orientation-active levels
   on the CSR cell-evaluation kernels.
 

@@ -490,7 +490,7 @@ def make_csr_solver(
                 def take(comp):
                     return torch.where(mask, comp[idxs], SENTINEL)
 
-                legs_ = legs_ | kernel_fn(tab_, take(xs), take(ys), take(zs))
+                legs_ = kernel_fn(tab_, take(xs), take(ys), take(zs), legs_)
             # columns fully consumed this round become scanned; a column
             # cut mid-way is re-queued next round (correct, mildly
             # wasteful)

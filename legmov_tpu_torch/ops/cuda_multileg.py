@@ -65,6 +65,20 @@ _HDR = 7  # quat (4) + body position (3)
 _INNER, _OUTER, _FAN, _FAP, _WN, _WP = range(6)
 
 SENTINEL = 1e9  # a candidate this far away is reachable by no leg
+#: a candidate this far (mm) from the pose's body in some axis reaches no
+#: leg, so the multi-leg kernel skips it (csrc/multileg_kernels.cu ML_FAR);
+#: that holds while every leg reaches less than FAR / 1e3 from the body
+#: (:func:`oriented_tables` refuses a leg that reaches further)
+FAR = 1e8
+
+
+def leg_reach(leg: LegDimensions) -> float:
+    """How far (mm) from the body origin a leg's circles reach at most:
+    every circle lies within femur + tibia (and the margin) of the femur
+    joint."""
+    return (abs(float(leg.body)) + abs(float(leg.coxa_length))
+            + float(leg.femur_length) + float(leg.tibia_length)
+            + CIRCLE_MARGIN)
 
 
 def table_width(n_legs: int) -> int:
@@ -148,6 +162,12 @@ def oriented_tables(body_pos: torch.Tensor, quats: torch.Tensor,
     dev = quats.device
     P = quats.shape[0]
     L = leg_count(robot)
+    for l in range(L):
+        if not leg_reach(leg_of(robot, l)) < FAR / 1e3:
+            raise ValueError(
+                f"leg {l} reaches {leg_reach(leg_of(robot, l))} mm from the "
+                f"body: the kernels skip candidates {FAR} mm away, which "
+                f"needs every leg within {FAR / 1e3} mm")
     quats = quats.to(torch.float32)
     body_pos = body_pos.to(torch.float32)
 
@@ -362,17 +382,73 @@ def _one_leg_plain(s, l, c, vx, vy, vz):
     return plane_ok if coxa_invalid is None else (~coxa_invalid & plane_ok)
 
 
-def multileg_kernel_plain(tab, gx, gy, gz, consts) -> torch.Tensor:
+def multileg_kernel_plain(tab, gx, gy, gz, consts,
+                          legs_in=None) -> torch.Tensor:
     """Plain PyTorch version of the multi-leg kernel: ``tab [P, W]``,
     ``gx, gy, gz [P, C]`` float32 -> ``[P, L]`` bool, on the tensors'
-    device.  Any ``P >= 0`` and ``C >= 0``."""
+    device, ORed with ``legs_in [P, L]`` bool (legs found before) when
+    given.  Any ``P >= 0`` and ``C >= 0``."""
     def s(i):
         return tab[:, i:i + 1]  # [P, 1], broadcasts against the candidates
 
     vx, vy, vz = _unrotate_plain(s, gx, gy, gz)
     bits = [torch.any(_one_leg_plain(s, l, c, vx, vy, vz), dim=1)
             for l, c in enumerate(consts)]
-    return torch.stack(bits, dim=1)
+    out = torch.stack(bits, dim=1)
+    return out if legs_in is None else out | legs_in
+
+
+def multileg_need(tab, gx, gy, gz, consts, legs_in) -> torch.Tensor:
+    """What one multi-leg launch needs to decide its output, from the plain
+    version's leg bits: int64 ``[2 + L]`` on the tensors' device, the
+    candidates read, their un-rotations, then each leg's evaluations.
+
+    A walk over each pose's candidates in order reads them until every leg
+    the pose misses (not in ``legs_in``) is found, or to the end; a
+    candidate :data:`FAR` from the body in some axis (padding) costs its
+    read only; a leg runs on the near candidates up to and including its
+    first hit.  Any other order of the walk needs as much or more."""
+    L = len(consts)
+    dev = tab.device
+    need = torch.zeros(2 + L, dtype=torch.int64, device=dev)
+    # only the poses that miss a leg need anything
+    some = (~legs_in).any(dim=1).nonzero()[:, 0]
+    tab, legs_in = tab[some], legs_in[some]
+    gx, gy, gz = gx[some], gy[some], gz[some]
+    P, C = gx.shape
+    rows = max(1, (1 << 22) // max(C, 1))
+    for lo in range(0, P if C else 0, rows):
+        t = tab[lo:lo + rows]
+
+        def s(i, t=t):
+            return t[:, i:i + 1]
+
+        g = [c[lo:lo + rows] for c in (gx, gy, gz)]
+        near = ~(((g[0] - s(4)).abs() > FAR) | ((g[1] - s(5)).abs() > FAR)
+                 | ((g[2] - s(6)).abs() > FAR))
+        # near candidates among the first i of a row: cum[:, i]
+        cum = torch.nn.functional.pad(near.cumsum(1), (1, 0))
+        v = _unrotate_plain(s, *g)
+        miss = ~legs_in[lo:lo + rows]
+        read = torch.zeros(t.shape[0], dtype=torch.int64, device=dev)
+        for l, c in enumerate(consts):
+            hit = (_one_leg_plain(s, l, c, *v) & near).to(torch.int32)
+            # candidates up to and including the first hit, or all of them
+            upto = torch.where(hit.any(dim=1), hit.argmax(dim=1) + 1, C)
+            upto = torch.where(miss[:, l], upto, 0)
+            read = torch.maximum(read, upto)
+            need[2 + l] += cum.gather(1, upto[:, None]).sum()
+        need[0] += read.sum()
+        need[1] += cum.gather(1, read[:, None]).sum()
+    return need
+
+
+def multileg_flops(need, consts) -> int:
+    """fp32 operations of :func:`multileg_need`'s counts ``need`` (a
+    tensor or a sequence)."""
+    need = torch.as_tensor(need).tolist()
+    return need[1] * UNROTATE_FLOPS + sum(
+        n * leg_flops(c) for n, c in zip(need[2:], consts))
 
 
 def csr_window_kernel_plain(tab, legs_in, starts, lens, masks, xs, ys, zs,
@@ -522,10 +598,12 @@ def _bits_to_bool(bits: torch.Tensor, L: int) -> torch.Tensor:
     return ((bits[:, None] >> shifts[None, :]) & 1) != 0
 
 
-def multileg_kernel(tab, gx, gy, gz, consts, params=None) -> torch.Tensor:
+def multileg_kernel(tab, gx, gy, gz, legs_in, consts,
+                    params=None) -> torch.Tensor:
     """Per-leg any-candidate reachability: ``tab [P, W]`` from
     :func:`oriented_tables`, ``gx, gy, gz [P, C]`` candidate world
-    coordinates per pose -> ``[P, L]`` bool.
+    coordinates per pose -> ``[P, L]`` bool, ORed with ``legs_in [P, L]``
+    bool (legs found before: the kernel spends no work on them).
 
     CUDA tensors launch the kernel (or raise); CPU tensors run
     :func:`multileg_kernel_plain`.  Any ``P >= 0`` and ``C >= 0``; an empty
@@ -541,11 +619,16 @@ def multileg_kernel(tab, gx, gy, gz, consts, params=None) -> torch.Tensor:
     if tab.shape != (P, table_width(L)):
         raise ValueError(
             f"tab must be [{P}, {table_width(L)}], got {tuple(tab.shape)}")
+    _check("legs_in", legs_in, torch.bool, 2, tab.device)
+    if legs_in.shape != (P, L):
+        raise ValueError(f"legs_in must be [{P}, {L}], got "
+                         f"{tuple(legs_in.shape)}")
     if tab.device.type == "cpu":
-        return multileg_kernel_plain(tab, gx, gy, gz, consts)
+        return multileg_kernel_plain(tab, gx, gy, gz, consts, legs_in)
     if tab.device.type != "cuda":
         raise ValueError(f"unsupported device {tab.device}")
-    bits = torch.zeros(P, dtype=torch.int32, device=tab.device)
+    shifts = torch.arange(L, device=tab.device, dtype=torch.int32)
+    bits = (legs_in.to(torch.int32) << shifts).sum(dim=1, dtype=torch.int32)
     if P == 0 or C == 0:
         return _bits_to_bool(bits, L)
     lib = _library()
@@ -619,24 +702,26 @@ csr_window_kernel.launches = 0
 def make_multileg_kernel(robot: LegDimensions, cand_cols: int | None = None):
     """Kernel factory for a fixed robot.
 
-    Returns ``fn(tab [P, W], gx, gy, gz [P, C]) -> [P, L] bool`` where
-    (gx, gy, gz) are candidate foothold world coordinates per pose (padding
-    = :data:`SENTINEL`) and ``tab`` comes from :func:`oriented_tables` for
-    the same poses.  ``cand_cols``, when given, is the one candidate width
-    the caller will use and is checked on every call.  ``fn.consts`` holds
-    the leg constants, ``fn.plain`` the plain version with them bound.
+    Returns ``fn(tab [P, W], gx, gy, gz [P, C], legs_in [P, L]) -> [P, L]
+    bool`` where (gx, gy, gz) are candidate foothold world coordinates per
+    pose (padding = :data:`SENTINEL`), ``tab`` comes from
+    :func:`oriented_tables` for the same poses and ``legs_in`` holds legs
+    found before (ORed in, and skipped by the kernel).
+    ``cand_cols``, when given, is the one candidate width the caller will
+    use and is checked on every call.  ``fn.consts`` holds the leg
+    constants, ``fn.plain`` the plain version with them bound.
     """
     consts = leg_constants(robot)
     params = multileg_params(consts)
 
-    def fn(tab, gx, gy, gz):
+    def fn(tab, gx, gy, gz, legs_in):
         if cand_cols is not None and gx.shape[-1] != cand_cols:
             raise ValueError(
                 f"candidate width {gx.shape[-1]} != cand_cols {cand_cols}")
-        return multileg_kernel(tab, gx, gy, gz, consts, params)
+        return multileg_kernel(tab, gx, gy, gz, legs_in, consts, params)
 
-    def plain(tab, gx, gy, gz):
-        return multileg_kernel_plain(tab, gx, gy, gz, consts)
+    def plain(tab, gx, gy, gz, legs_in):
+        return multileg_kernel_plain(tab, gx, gy, gz, consts, legs_in)
 
     fn.consts = consts
     fn.plain = plain

@@ -26,10 +26,19 @@ by-value parameter block (:func:`dist_leg_constants`).
 
 The item's arithmetic is written once in plain tensor operations
 (:func:`item_head_plain`, :func:`item_leg_plain`) in the kernel's order and
-shared by every plain version here and in ops/csr_cell_eval.py.  The wrapper
-(:func:`multileg_distance_kernel`) runs the plain version for CPU tensors
-only; for a CUDA tensor it launches the kernel or raises, and counts its
-launches in ``multileg_distance_kernel.launches``.
+shared by every plain version here and in ops/csr_cell_eval.py.  Two kernels
+run it over dense candidates:
+
+* the item form (:func:`multileg_distance_kernel`, ``legmov_item_kernel``):
+  ``[P, W]`` items x ``[1 or P, C]`` candidates -> ``[P, 3L + 3]`` bits;
+* the cell driver (:func:`item_cells_kernel`, ``legmov_item_cells_kernel``),
+  the orientation-active levels of ``cli solve --candidates dense``: a batch
+  of cells under the level's ``S`` orientation rows (:func:`level_table`)
+  over the batch's footholds -> ``[3, C]`` (valid, edge, leaf) flags, one
+  launch a batch (:func:`make_cell_eval_rot`).
+
+Each wrapper runs its plain version for CPU tensors only; for a CUDA tensor
+it launches the kernel or raises, and counts its launches in ``.launches``.
 """
 
 from __future__ import annotations
@@ -75,6 +84,21 @@ HEAD_FLOPS = 39
 #: alternative and un-rotation 29); branch select 11, un-pitch, un-yaw and
 #: body rotation 42, crossing tests 13.
 LEG_FLOPS = 20 + 2 * 387 + 66
+#: The cell driver's count (:func:`item_cells_flops` of
+#: :func:`item_cells_need`): the box test once per (cell, foothold) pair, 3
+#: subtractions and 6 compares; the un-rotation (doubled cross product 12,
+#: rotated sum 18) once per pair inside the box and orientation.
+BOX_FLOPS = 9
+UNROTATE_FLOPS = 30
+
+
+def item_cells_flops(box_tests: int, unrotations: int,
+                     leg_pipelines: int) -> int:
+    """fp32 operations of a cell batch's counts: :data:`BOX_FLOPS` per box
+    test, :data:`UNROTATE_FLOPS` per un-rotation, :data:`LEG_FLOPS` per leg
+    pipeline."""
+    return (box_tests * BOX_FLOPS + unrotations * UNROTATE_FLOPS
+            + leg_pipelines * LEG_FLOPS)
 
 
 def table_width(n_legs: int) -> int:
@@ -145,6 +169,21 @@ def tables_from_blocks(blocks, quat_index, quats, body_pos, parent_valid,
                             margin, reach)
     tab[:, _HDR:_HDR + L * LEG_BLOCK] = blocks[quat_index]
     return tab
+
+
+def level_table(blocks, quats, half, parent_half, margin: float,
+                reach: float) -> torch.Tensor:
+    """``[S, table_width(L)]`` rows of one level: orientation ``q``'s
+    quaternion, the level's header (crossing box, elongated box) and
+    ``blocks[q]``; the item position and parent-valid slots are 0 (a cell
+    batch brings its own)."""
+    S = quats.shape[0]
+    dev = quats.device
+    return tables_from_blocks(
+        blocks, torch.arange(S, device=dev), quats,
+        torch.zeros((S, 3), dtype=torch.float32, device=dev),
+        torch.zeros(S, dtype=torch.bool, device=dev), half, parent_half,
+        margin, reach)
 
 
 def oriented_dist_tables(body_pos, quats, parent_valid, half, parent_half,
@@ -599,6 +638,10 @@ def signatures() -> dict:
     return {
         # tab, gx, gy, gz, P, C, shared_row, out_bits, params, stream
         "legmov_item": [vp, vp, vp, vp, ll, ll, ci, vp, pp, vp],
+        # legtab, S, centers, parent_valid, C, x, y, z, f_stride, F, shared,
+        # flags, scratch, params, stream
+        "legmov_item_cells": [vp, ci, vp, vp, ll, vp, vp, vp, ll, ll, ci, vp,
+                              vp, pp, vp],
         # queue, out, C, CH, S, window, shared, params, stream
         "legmov_cell_quat_major": queue + [vp, ll, ll, ci, ci, ci, pp, vp],
         # queue, out, C, CH, S, window, params, stream
@@ -639,12 +682,15 @@ def library():
 OUT_WORDS = 10
 
 #: the kernels of ``csrc/cell_kernels.cu``, as :func:`occupancy` names them
-KERNEL_FORMS = ("item", "cell_quat_major", "cell_shared", "cell_cm_perleg")
+KERNEL_FORMS = ("item", "cell_quat_major", "cell_shared", "cell_cm_perleg",
+                "item_cells", "item_cells_shared")
 
 
 def occupancy(form: str, n_legs: int, window: int = 0) -> dict:
     """How the card holds kernel ``form`` (one of :data:`KERNEL_FORMS`)
-    launched for ``n_legs`` legs and chunks of ``window`` elements:
+    launched for ``n_legs`` legs and chunks of ``window`` elements (for
+    the cell driver, ``item_cells`` under the per-leg rule and
+    ``item_cells_shared`` under the shared rule: ``window`` orientations):
     registers and local memory (spills and stack) a thread, threads and
     shared memory a block, blocks and warps an SM."""
     lib = library()
@@ -759,21 +805,236 @@ def make_multileg_distance_kernel(robot: LegDimensions,
     return fn
 
 
+def item_rows(centers, parent_valid, legtab) -> torch.Tensor:
+    """``[C * S, W]`` rows of the (cell, orientation) items of a batch,
+    cell-major: the level's rows ``legtab [S, W]`` with each cell's centre
+    and parent-valid written in."""
+    C, S = centers.shape[0], legtab.shape[0]
+    tab = legtab.repeat(C, 1)
+    tab[:, 4:7] = centers.repeat_interleave(S, dim=0)
+    tab[:, 7] = parent_valid.repeat_interleave(S).to(torch.float32)
+    return tab
+
+
+def fold_item_lanes(lanes, parent_valid, S: int, k: int,
+                    shared: bool) -> torch.Tensor:
+    """(valid, edge, leaf) ``[3, C]`` bool from the item lanes ``[C * S, 3L
+    + 3]`` (cell-major, as :func:`multileg_distance_kernel_plain` gives
+    them): under the shared rule the any over the orientations, under the
+    per-leg rule the leg counts of each orientation
+    (``models/hier_solver.py`` ``_eval_cells``)."""
+    L = (lanes.shape[1] - 3) // 3
+    lanes = lanes.reshape(-1, S, 3 * L + 3)
+    if shared:
+        any_valid = lanes[:, :, 3 * L].any(dim=1)
+        any_edge = lanes[:, :, 3 * L + 1].any(dim=1)
+        any_leaf = lanes[:, :, 3 * L + 2].any(dim=1)
+    else:
+        counts = lanes[:, :, :L].sum(dim=-1)  # [C, S]
+        n_min = lanes[:, :, L:2 * L].sum(dim=-1)
+        n_max = lanes[:, :, 2 * L:3 * L].sum(dim=-1)
+        any_valid = (counts >= k).any(dim=1) | parent_valid
+        any_edge = ((n_min < k) & (n_max >= k)).any(dim=1)
+        any_leaf = any_valid & ~any_edge
+    return torch.stack([any_valid, any_edge, any_leaf])
+
+
+def item_cells_plain(centers, parent_valid, footholds, legtab, consts,
+                     k: int, shared: bool, *,
+                     cand_chunk: int = 2048) -> torch.Tensor:
+    """Plain PyTorch version of the cell driver: (valid, edge, leaf) flags
+    ``[3, C]`` bool of a batch of cells (``centers [C, 3]``,
+    ``parent_valid [C]`` bool) under the level's orientation rows ``legtab
+    [S, W]`` (:func:`level_table`) over ``footholds [F, 3]``.
+
+    The (cell, orientation) items (:func:`item_rows`) run through the
+    item's plain version over foothold windows of ``cand_chunk`` shared by
+    every item, and their lanes fold into the flags
+    (:func:`fold_item_lanes`)."""
+    C, S = centers.shape[0], legtab.shape[0]
+    L = len(consts)
+    tab = item_rows(centers, parent_valid, legtab)
+    lanes = torch.zeros((C * S, 3 * L + 3), dtype=torch.bool,
+                        device=centers.device)
+    fx, fy, fz = (footholds[:, i].contiguous()[None, :] for i in range(3))
+    for lo in range(0, footholds.shape[0], cand_chunk):
+        g = [f[:, lo:lo + cand_chunk].contiguous() for f in (fx, fy, fz)]
+        lanes |= multileg_distance_kernel_plain(tab, *g, consts, k)
+    return fold_item_lanes(lanes, parent_valid, S, k, shared)
+
+
+def item_cells_need(centers, parent_valid, footholds, legtab, consts,
+                    k: int, shared: bool) -> torch.Tensor:
+    """What the cell driver's batch needs to decide its flags, from the
+    plain item's bits: int64 ``[3]`` on the batch's device, the box tests,
+    the un-rotations and the leg pipelines of a walk over each cell's
+    footholds in order.
+
+    The walk box-tests footholds until the cell is settled (every foothold
+    if it never is), un-rotates each pair inside the box once per
+    orientation and runs the item's leg pipelines on it:
+
+    * shared rule: the cell is settled once valid, edge and leaf are all
+      seen; a pair runs every orientation's L legs, except that after the
+      pair that sets edge, with no valid parent, an item's legs stop once it
+      cannot reach ``k`` (such an item gives neither valid nor leaf);
+    * per-leg rule: a leg of an orientation is settled once ok and ok & ~
+      crossed are seen (no pair can change its three bits); a pair runs the
+      unsettled legs of the orientations with one, and the cell is settled
+      once every (orientation, leg) is."""
+    C, S, F = centers.shape[0], legtab.shape[0], footholds.shape[0]
+    L = len(consts)
+    dev = centers.device
+    need = torch.zeros(3, dtype=torch.int64, device=dev)
+    if C == 0 or F == 0:
+        return need
+    # the (cell, foothold) pairs inside the box, cell-major, footholds in
+    # order: the box test of the kernel on r = f - c
+    e = legtab[0, 13:16]
+    keys = []
+    for lo in range(0, F, 1 << 12):
+        r = footholds[None, lo:lo + (1 << 12)] - centers[:, None]
+        cell, foot = ((r > -e) & (r <= e)).all(dim=-1).nonzero(as_tuple=True)
+        keys.append(cell * F + foot + lo)
+    key = torch.sort(torch.cat(keys)).values
+    cell, foot = key // F, key % F
+    n = key.shape[0]
+    per_cell = torch.bincount(cell, minlength=C)
+    start = torch.cumsum(per_cell, 0) - per_cell
+    big = torch.iinfo(torch.int64).max
+    # leg bits of every pair and orientation: ok at bit l, crossed at L + l
+    bits = torch.zeros((S, n), dtype=torch.int32, device=dev)
+    r = footholds[foot] - centers[cell]
+    step = max(1, _PLAIN_TILE // S)
+    for lo in range(0, n, step):
+        g = [r[None, lo:lo + step, i] for i in range(3)]
+        _, outs = item_math_plain(lambda i: legtab[:, i:i + 1], consts, *g)
+        for l, (ok, crossed) in enumerate(outs):
+            bits[:, lo:lo + step] |= ((ok.to(torch.int32) << l)
+                                      | (crossed.to(torch.int32) << (L + l)))
+    pos = torch.arange(n, device=dev)
+
+    def first(mask):
+        """[C]: the first pair of each cell where ``mask [n]`` holds."""
+        return torch.full((C,), big, dtype=torch.int64, device=dev) \
+            .scatter_reduce(0, cell, torch.where(mask, pos, big), "amin")
+
+    def upto(last):
+        """[n]: the pair is at or before its cell's pair ``last [C]``."""
+        return pos <= last[cell]
+
+    def done(last):
+        """[C]: footholds box-tested up to and including pair ``last``."""
+        hit = last < big
+        f = foot[torch.where(hit, last, 0)] if n else last
+        return torch.where(hit, f + 1, F)
+
+    ok = bits & ((1 << L) - 1)
+    crossed = bits >> L
+    if shared:
+        pv = parent_valid[cell]
+        iv = (sum((ok >> l) & 1 for l in range(L)) >= k) | pv
+        ie = sum((crossed >> l) & 1 for l in range(L)) > L - k
+        seen = [first(iv.any(dim=0)), first(ie.any(dim=0)),
+                first((iv & ~ie).any(dim=0))]
+        last = torch.maximum(torch.maximum(seen[0], seen[1]), seen[2])
+        take = upto(last)
+        # the leg chain: after the pair that sets edge, no valid parent
+        chain = take & ~pv & (pos > seen[1][cell])
+        legs = torch.full((S, n), L, dtype=torch.int64, device=dev)
+        got = torch.zeros((S, n), dtype=torch.int64, device=dev)
+        for l in range(L - 1):
+            got += (ok >> l) & 1
+            legs -= (chain & (got + (L - 1 - l) < k)).to(torch.int64)
+        need[1] = take.sum() * S
+        need[2] = (legs * take).sum()
+    else:
+        # per (orientation, leg): the pair that settles it
+        settle = torch.full((S, L, C), big, dtype=torch.int64, device=dev)
+        for q in range(S):
+            for l in range(L):
+                o = ((ok[q] >> l) & 1) != 0
+                mn = o & (((crossed[q] >> l) & 1) == 0)
+                settle[q, l] = torch.maximum(first(o), first(mn))
+        row = settle.amax(dim=1)  # [S, C]
+        last = row.amax(dim=0)
+        need[1] = sum(upto(row[q]).sum() for q in range(S))
+        need[2] = sum(upto(settle[q, l]).sum()
+                      for q in range(S) for l in range(L))
+    need[0] = done(last).sum()
+    return need
+
+
+def item_cells_kernel(centers, parent_valid, footholds, legtab, consts,
+                      k: int, shared: bool, *, params=None,
+                      cand_chunk: int = 2048) -> torch.Tensor:
+    """(valid, edge, leaf) flags ``[3, C]`` bool of one orientation-active
+    batch, see :func:`item_cells_plain` for the arguments (all contiguous,
+    on one device; F may be 0; NaN, inf and far footholds fail the box).
+
+    CUDA tensors launch the cell driver once (or raise); CPU tensors run
+    :func:`item_cells_plain` (over foothold windows of ``cand_chunk``)."""
+    L = len(consts)
+    for name, t, dtype, ndim in (("centers", centers, torch.float32, 2),
+                                 ("parent_valid", parent_valid, torch.bool, 1),
+                                 ("footholds", footholds, torch.float32, 2)):
+        check_tensor(name, t, dtype, ndim, centers.device)
+    check_tensor("legtab", legtab, torch.float32, 2, centers.device)
+    C, S = centers.shape[0], legtab.shape[0]
+    if centers.shape[1] != 3 or footholds.shape[1] != 3 \
+            or parent_valid.shape[0] != C:
+        raise ValueError(
+            f"centers {tuple(centers.shape)}, parent_valid "
+            f"{tuple(parent_valid.shape)}, footholds {tuple(footholds.shape)}: "
+            "need [C, 3], [C] and [F, 3]")
+    if legtab.shape[1] != table_width(L) or S < 1:
+        raise ValueError(f"legtab must be [S >= 1, {table_width(L)}], got "
+                         f"{tuple(legtab.shape)}")
+    dev = centers.device
+    if dev.type == "cpu":
+        return item_cells_plain(centers, parent_valid, footholds, legtab,
+                                consts, k, shared, cand_chunk=cand_chunk)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    flags = torch.empty((3, C), dtype=torch.bool, device=dev)
+    if C == 0:
+        return flags
+    lib = library()
+    if params is None:
+        params = item_params(consts, k)
+    elif params.k != k:
+        raise ValueError("parameter block was built for a different quorum")
+    # where the splits of a cell meet: S + 1 words a cell, zero
+    scratch = torch.zeros(C * (S + 1), dtype=torch.int32, device=dev)
+    f = footholds.data_ptr()
+    with torch.cuda.device(dev):
+        err = lib.legmov_item_cells(
+            legtab.data_ptr(), S, centers.data_ptr(), parent_valid.data_ptr(),
+            C, f, f + 4, f + 8, 3, footholds.shape[0], int(shared),
+            flags.data_ptr(), scratch.data_ptr(), ctypes.byref(params),
+            stream())
+    if err != 0:
+        raise RuntimeError(f"legmov_item_cells launch failed: CUDA error {err}")
+    item_cells_kernel.launches += 1
+    return flags
+
+
+item_cells_kernel.launches = 0
+
+
 def make_cell_eval_rot(robot: LegDimensions, k: int, cand_chunk: int = 2048,
                        plain: bool = False):
-    """Orientation-active ``_eval_cells`` twin running the fused item kernel
-    over (cell, orientation) pose items.
+    """Orientation-active ``_eval_cells`` twin on K5's cell driver.
 
-    Same contract as models/hier_solver.py ``_eval_cells``; the candidate
-    (foothold) axis is walked in ``cand_chunk`` windows shared by all items
-    of the batch (one launch each), and the kernel's whole-row reductions
-    are combined over the orientation axis here.  The leg blocks of the
-    orientation samples are built once and reused for as long as the same
-    quaternions come in.  ``plain`` asks for the plain version on any
-    device."""
-    kernel_fn = make_multileg_distance_kernel(robot, k=k)
-    item_fn = kernel_fn.plain if plain else kernel_fn
-    L = leg_count(robot)
+    Same contract as models/hier_solver.py ``_eval_cells``: one call is one
+    launch of :func:`item_cells_kernel` on a card and its plain version on
+    the CPU (foothold windows of ``cand_chunk``); ``plain`` asks for the
+    plain version on any device.  The leg blocks of the orientation samples
+    are built once and kept for as long as the same quaternion tensor (the
+    same storage, unchanged) comes in, the level's rows for as long as the
+    same level does, so a batch reads nothing back from the device."""
+    consts = dist_leg_constants(robot)
+    params = item_params(consts, k)
     quorum_k = k
     cache: dict = {}
 
@@ -785,43 +1046,26 @@ def make_cell_eval_rot(robot: LegDimensions, k: int, cand_chunk: int = 2048,
         if k != quorum_k:
             raise ValueError("kernel was built for a different quorum")
         dev = centers.device
-        C, S = centers.shape[0], quats.shape[0]
-        key = (quats.cpu().numpy().tobytes(), str(dev))
+        key = (quats.data_ptr(), tuple(quats.shape), tuple(quats.stride()),
+               quats._version, str(dev))
         if cache.get("key") != key:
-            cache["key"] = key
-            cache["blocks"] = torch.as_tensor(
-                leg_blocks(quats.cpu().numpy(), robot), device=dev)
-        # (cell, quat) items, cell-major so reshape recovers [C, S]
-        tab = tables_from_blocks(
-            cache["blocks"], torch.arange(S, device=dev).repeat(C),
-            quats.repeat(C, 1), centers.repeat_interleave(S, dim=0),
-            parent_valid.repeat_interleave(S), half, parent_half, margin,
-            reach)
-        lanes = torch.zeros((C * S, 3 * L + 3), dtype=torch.bool, device=dev)
-        F = footholds.shape[0]
-        fx = footholds[:, 0].contiguous()[None, :]
-        fy = footholds[:, 1].contiguous()[None, :]
-        fz = footholds[:, 2].contiguous()[None, :]
-        for lo in range(0, F, cand_chunk):
-            hi = min(lo + cand_chunk, F)
-            lanes |= item_fn(tab, fx[:, lo:hi].contiguous(),
-                             fy[:, lo:hi].contiguous(),
-                             fz[:, lo:hi].contiguous())
-        lanes = lanes.reshape(C, S, 3 * L + 3)
-        # per-leg bits [C, S, L]
-        leg_any = lanes[:, :, :L]
-        leg_cert = lanes[:, :, L:2 * L]
-        leg_poss = lanes[:, :, 2 * L:3 * L]
-        any_valid = lanes[:, :, 3 * L].any(dim=1)
-        any_edge = lanes[:, :, 3 * L + 1].any(dim=1)
-        any_leaf = lanes[:, :, 3 * L + 2].any(dim=1)
-        if not shared:
-            counts = leg_any.sum(dim=-1)  # [C, S]
-            n_min = leg_cert.sum(dim=-1)
-            n_max = leg_poss.sum(dim=-1)
-            any_valid = (counts >= k).any(dim=1) | parent_valid
-            any_edge = ((n_min < k) & (n_max >= k)).any(dim=1)
-            any_leaf = any_valid & ~any_edge
-        return any_valid, any_edge, any_leaf
+            cache.clear()
+            # the tensor is held, so no other one takes its storage
+            cache.update(key=key, quats=quats, blocks=torch.as_tensor(
+                leg_blocks(quats.cpu().numpy(), robot), device=dev))
+        level = (np.asarray(half, _f32).tobytes(),
+                 np.asarray(parent_half, _f32).tobytes(), float(margin),
+                 float(reach))
+        if level not in cache:
+            cache[level] = level_table(cache["blocks"], quats.to(dev), half,
+                                       parent_half, margin, reach)
+        args = (centers, parent_valid, footholds.contiguous(), cache[level],
+                consts, k, shared)
+        if plain:
+            flags = item_cells_plain(*args, cand_chunk=cand_chunk)
+        else:
+            flags = item_cells_kernel(*args, params=params,
+                                      cand_chunk=cand_chunk)
+        return flags.unbind(0)
 
     return eval_cells

@@ -257,3 +257,281 @@ def test_cell_eval_rot_equals_jax_eval_cells(shared):
     with pytest.raises(ValueError):
         ev(_t(centers), _t(pv), half, parent_half, _t(fh), _t(quats), t,
            k=k + 1)
+
+
+def _cell_batch(seed=3, cells=6, S=3, F=600):
+    """A small orientation-active batch: cells above seeded footholds,
+    three orientation samples (the first the identity)."""
+    rng = np.random.default_rng(seed)
+    centers = rng.uniform(-250, 250, (cells, 3)).astype(np.float32)
+    centers[:, 2] = rng.uniform(80, 160, cells)
+    pv = rng.random(cells) < 0.3
+    rpy = rng.uniform(-0.3, 0.3, (S, 3)).astype(np.float32)
+    quats = np.array(jq.from_rpy(rpy[:, 0], rpy[:, 1], rpy[:, 2]), np.float32)
+    quats[0] = [1, 0, 0, 0]
+    fh = rng.uniform(-900, 900, (F, 3)).astype(np.float32)
+    fh[:, 2] = rng.uniform(-150, -60, F)
+    return centers, pv, quats, fh
+
+
+CELL_HALF = np.asarray([40.0, 40.0, 40.0], np.float32)
+CELL_REACH = 711.0
+
+
+@pytest.fixture(scope="module")
+def jax_cells():
+    """JAX ``_eval_cells`` on :func:`_cell_batch` under both rules (one
+    compile each, at three orientation samples)."""
+    j, _ = _robots("quad_moonbot")
+    centers, pv, quats, fh = _cell_batch()
+    return {shared: [np.asarray(w) for w in jhs._eval_cells(
+        jnp.asarray(centers), jnp.asarray(pv), jnp.asarray(CELL_HALF),
+        jnp.asarray(2 * CELL_HALF), jnp.asarray(fh), jnp.asarray(quats), j,
+        k=2, margin=0.0, reach=CELL_REACH, chunk=300, use_rot=True,
+        shared=shared)] for shared in (True, False)}
+
+
+@pytest.mark.parametrize("cand_chunk", [64, 256, 4096])
+@pytest.mark.parametrize("shared", [True, False])
+def test_cell_driver_plain_version_equals_jax_eval_cells(jax_cells, shared,
+                                                        cand_chunk):
+    """``make_cell_eval_rot(..., plain=True)``, the cell driver's plain
+    version, gives JAX ``_eval_cells``'s flags whatever its foothold window
+    (so it equals itself across windows), and so does the wrapper on CPU
+    tensors (which runs the plain version and launches nothing)."""
+    _, t = _robots("quad_moonbot")
+    centers, pv, quats, fh = _cell_batch()
+    before = td.item_cells_kernel.launches
+    for plain in (True, False):
+        ev = td.make_cell_eval_rot(t, k=2, cand_chunk=cand_chunk, plain=plain)
+        got = ev(_t(centers), _t(pv), CELL_HALF, 2 * CELL_HALF, _t(fh),
+                 _t(quats), t, k=2, margin=0.0, reach=CELL_REACH,
+                 shared=shared)
+        for g, w, name in zip(got, jax_cells[shared],
+                              ("valid", "edge", "leaf")):
+            assert g.dtype == torch.bool
+            np.testing.assert_array_equal(g.numpy(), w, err_msg=name)
+    assert jax_cells[shared][0].any() and jax_cells[shared][1].any()
+    assert td.item_cells_kernel.launches == before and td._bound is None
+
+
+def _level(t, quats, half=CELL_HALF, margin=0.0, reach=CELL_REACH):
+    blocks = torch.as_tensor(td.leg_blocks(quats, t))
+    return td.level_table(blocks, _t(quats), half, 2 * half, margin, reach)
+
+
+@pytest.mark.parametrize("shared", [True, False])
+def test_cell_driver_special_batches_equal_the_eager_evaluator(shared):
+    """NaN, inf and 1e9 footholds, no footholds, a foothold count off the
+    kernel's tile, one orientation, every parent valid and one cell: the
+    wrapper (its plain version on the CPU) against the port's eager
+    ``_eval_cells``, an independent formulation of the same flags."""
+    from legmov_tpu_torch.models import hier_solver as ths
+
+    _, t = _robots("quad_moonbot")
+    centers, pv, quats, fh = _cell_batch(seed=5, cells=5, F=300)
+    odd = fh.copy()
+    odd[0:3] = np.nan
+    odd[3:6, 1] = np.inf
+    odd[6:9, 2] = -np.inf
+    odd[9:40] = 1e9
+    consts = td.dist_leg_constants(t)
+    cases = [(centers, pv, fh[:257], quats), (centers, pv, odd, quats),
+             (centers, pv, fh[:0], quats), (centers, pv, fh, quats[:1]),
+             (centers, np.ones_like(pv), fh, quats),
+             (centers[:1], pv[:1], fh, quats)]
+    for c, p, f, q in cases:
+        got = td.item_cells_kernel(_t(c), _t(p), _t(f), _level(t, q), consts,
+                                   2, shared)
+        want = ths._eval_cells(_t(c), _t(p), CELL_HALF, 2 * CELL_HALF, _t(f),
+                               _t(q), t, k=2, margin=0.0, reach=CELL_REACH,
+                               chunk=128, use_rot=True, shared=shared)
+        assert tuple(got.shape) == (3, c.shape[0]) and got.dtype == torch.bool
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.numpy(), w.numpy())
+
+
+def _walk(centers, pv, fh, lt, consts, k, shared):
+    """The cell driver's need counted pair by pair: (box tests,
+    un-rotations, leg pipelines) of a walk over each cell's footholds in
+    order that stops once the cell is settled (``item_cells_need``)."""
+    L, S = len(consts), lt.shape[0]
+    e = lt[0, 13:16].numpy()
+    tab = td.item_rows(_t(centers), _t(pv), lt)
+    box = unrot = legs = 0
+    for ci, c in enumerate(centers):
+        flags, chain = 0, False
+        settled = np.zeros((S, L), bool)
+        seen = np.zeros((S, L, 2), bool)  # ok, ok & ~crossed
+        for f in fh:
+            if (shared and flags == 7) or (not shared and settled.all()):
+                break
+            box += 1
+            r = f - c
+            if not ((r > -e) & (r <= e)).all():
+                continue
+            for q in range(S):
+                row = tab[ci * S + q:ci * S + q + 1]
+                _, outs = td.item_math_plain(
+                    lambda i: row[:, i:i + 1], consts,
+                    *(_t(f[None, i:i + 1]) for i in range(3)))
+                ok = [bool(o[0, 0]) for o, _ in outs]
+                cr = [bool(x[0, 0]) for _, x in outs]
+                if shared:
+                    unrot += 1
+                    rc = 0
+                    for l in range(L):
+                        legs += 1
+                        rc += ok[l]
+                        if chain and l < L - 1 and rc + (L - 1 - l) < k:
+                            break
+                    iv = sum(ok) >= k or bool(pv[ci])
+                    ie = sum(cr) > L - k
+                    flags |= iv | (ie << 1) | ((iv and not ie) << 2)
+                elif not settled[q].all():
+                    unrot += 1
+                    for l in range(L):
+                        if not settled[q, l]:
+                            legs += 1
+                            seen[q, l] |= (ok[l], ok[l] and not cr[l])
+            settled |= seen.all(axis=-1)
+            chain = bool(flags & 2) and not pv[ci]
+    return box, unrot, legs
+
+
+@pytest.mark.parametrize("shared", [True, False])
+def test_cell_driver_bound_count_against_a_brute_count(shared):
+    """``item_cells_need`` (what decides a batch's flags, from the plain
+    item's bits) against the walk counted pair by pair, with NaN footholds
+    and a cell far from every foothold; ``item_cells_flops`` prices the
+    counts."""
+    _, t = _robots("quad_moonbot")
+    centers, pv, quats, fh = _cell_batch(seed=7, cells=6, F=160)
+    fh[:3] = np.nan
+    centers[5] = [5000.0, 0.0, 100.0]
+    pv[:2] = [True, False]
+    consts = td.dist_leg_constants(t)
+    lt = _level(t, quats)
+    need = td.item_cells_need(_t(centers), _t(pv), _t(fh), lt, consts, 2,
+                              shared)
+    box, unrot, legs = _walk(centers, pv, fh, lt, consts, 2, shared)
+    assert need.tolist() == [box, unrot, legs]
+    assert 0 < legs < unrot * 4 and (box < 6 * 160 or not shared)
+    assert td.item_cells_flops(*need.tolist()) == (
+        box * td.BOX_FLOPS + unrot * td.UNROTATE_FLOPS + legs * td.LEG_FLOPS)
+    none = td.item_cells_need(_t(centers), _t(pv), _t(fh[:0]), lt, consts,
+                              2, shared)
+    assert none.tolist() == [0, 0, 0]
+
+
+def test_cell_driver_wrapper_refuses_what_the_kernel_does_not_take():
+    _, t = _robots("quad_moonbot")
+    centers, pv, quats, fh = _cell_batch()
+    consts = td.dist_leg_constants(t)
+    lt = _level(t, quats)
+    c, p, f = _t(centers), _t(pv), _t(fh)
+    with pytest.raises(TypeError):
+        td.item_cells_kernel(c.double(), p, f, lt, consts, 2, True)
+    with pytest.raises(TypeError):
+        td.item_cells_kernel(c, p.int(), f, lt, consts, 2, True)
+    with pytest.raises(ValueError):
+        td.item_cells_kernel(c, p[:2].contiguous(), f, lt, consts, 2, True)
+    with pytest.raises(ValueError):
+        td.item_cells_kernel(c, p, f[:, :2].contiguous(), lt, consts, 2, True)
+    with pytest.raises(ValueError):
+        td.item_cells_kernel(c, p, f, lt[:, :600].contiguous(), consts, 2,
+                             True)
+    with pytest.raises(ValueError, match="contiguous"):
+        td.item_cells_kernel(c, p, f.t().contiguous().t(), lt, consts, 2,
+                             True)
+    empty = td.item_cells_kernel(c[:0], p[:0], f, lt, consts, 2, True)
+    assert tuple(empty.shape) == (3, 0)
+
+
+def _circle_points(tab, consts, body, quats, thetas, steps):
+    """World points on every leg's sixteen slot circles (in the port's
+    table ``tab``) at the radius and at the edges of its margin band,
+    built in float64 and rounded once, then moved by ``steps`` ulp along
+    each axis: (points [N, 3] float32, item index [N])."""
+    pts, item = [], []
+    for p in range(tab.shape[0]):
+        w, u = float(quats[p, 0]), quats[p, 1:].astype(np.float64)
+        for l, c in enumerate(consts):
+            off = td._HDR + l * td.LEG_BLOCK
+            for k in range(16):
+                cx, cy = float(tab[p, off + td._CX + k]), float(
+                    tab[p, off + td._CY + k])
+                r = float(tab[p, off + td._CR + k])
+                for rr in (r, r + 1e-3, r - 1e-3):
+                    for th in thetas:
+                        rho = cx + rr * np.cos(th) + c["coxa_len"]
+                        if rho <= 1.0:
+                            continue
+                        zc = cy + rr * np.sin(th)
+                        px = rho * c["cp"] + zc * c["sp"]
+                        vz = -rho * c["sp"] + zc * c["cp"]
+                        x0 = px + c["body"]
+                        v = np.array([x0 * c["ca"], -x0 * c["sa"], vz])
+                        tq = 2 * np.cross(u, v)
+                        base = (v + w * tq + np.cross(u, tq)
+                                + body[p]).astype(np.float32)
+                        for ax in range(3):
+                            for d in steps:
+                                q = base.copy()
+                                for _ in range(abs(d)):
+                                    q[ax] = np.nextafter(
+                                        q[ax], np.float32(np.sign(d) * np.inf))
+                                pts.append(q)
+                                item.append(p)
+    return np.asarray(pts, np.float32), np.asarray(item)
+
+
+#: item bits that flip in the search below when each side uses its own
+#: tables (ROADMAP.md, fault F2): what the search found when it was made
+K5_FLIPS = {"quad_moonbot": 3, "hex_m2": 0}
+
+
+@pytest.mark.parametrize("name", list(ROBOTS))
+def test_item_bits_on_the_oriented_circles_against_jax(name):
+    """Footholds within a few ulp of every leg's oriented slot circles (and
+    of the edges of their margin bands), one candidate a row: the plain
+    item's per-leg ok and crossed bits against the JAX item
+    (``make_item_math``, the kernel's body), fed the same tables and each
+    side its own (ROADMAP.md, fault F2)."""
+    j, t = _robots(name)
+    L = trobot.leg_count(t)
+    # the items of the table tests (same shapes: the JAX tables compile once)
+    body, quats, pv, _ = _items()
+    tab_t = td.oriented_dist_tables(_t(body), _t(quats), _t(pv), HALF,
+                                    PARENT_HALF, t, MARGIN, REACH).numpy()
+    tab_j = _jax_table(j, body, quats, pv)
+    consts_t = td.dist_leg_constants(t)
+    item_j = jd.make_item_math(jd.dist_leg_constants(j))
+    pts, item = _circle_points(tab_t[:2], consts_t, body.astype(np.float64),
+                               quats, (0.4, -1.0), range(-3, 4))
+
+    def port(tab):
+        rows = torch.from_numpy(tab[item])
+        _, outs = td.item_math_plain(
+            lambda i: rows[:, i:i + 1], consts_t,
+            *(torch.from_numpy(pts[:, i:i + 1].copy()) for i in range(3)))
+        return np.stack([o[:, 0].numpy() for pair in outs for o in pair], 1)
+
+    def jax(tab):
+        rows = jnp.asarray(tab[item])
+        _, outs = item_j(lambda i: rows[:, i:i + 1],
+                         *(jnp.asarray(pts[:, i:i + 1]) for i in range(3)))
+        return np.stack([np.asarray(o)[:, 0] for pair in outs for o in pair],
+                        1)
+
+    want = jax(tab_j)
+    assert want.shape == (pts.shape[0], 2 * L) and 0 < want.mean() < 1
+    np.testing.assert_array_equal(port(tab_j), want)
+    flips = np.argwhere(port(tab_t) != want)
+    for i, b in flips[:3]:
+        print(f"{name}: {'crossed' if b % 2 else 'ok'} of leg {b // 2} "
+              f"flips at {pts[i].tolist()} (item {item[i]}: body "
+              f"{body[item[i]].tolist()}, quaternion "
+              f"{quats[item[i]].tolist()})")
+    print(f"{name}: {len(flips)} flips of {want.size} ok / crossed bits")
+    assert len(flips) <= K5_FLIPS[name]
