@@ -34,7 +34,17 @@ kernels alone: special values, and their times on real batches;
 11 K2's cell kernel on real batches of identity levels 2-6 of the deep
 solves and on special ones: against its plain version and against the
 eager loop with K2's point kernel that it replaced, bit for bit, and its
-time in turns with that loop and beside its bound.
+time in turns with that loop and beside its bound; 12 the reach probe
+(``python -m legmov_tpu_torch.reach_probe``): K1 and its io-only floor K7
+in turns at 16,777,216 points, K7 against its plain version bit for bit;
+13 tables built on the card against the same tables built on the CPU, bit
+for bit (ops/trig32.py's functions, the quaternions, ``oriented_tables``
+of the three test robots, K5's level rows), and ``oriented_tables``' time
+per ``cli map`` chunk.  Phase 8 also holds each deep solve's
+``host_syncs`` to what PyTorch's sync debug mode counts over the whole
+``cli solve`` (one packed fetch a level), and runs the per-leg solve again
+at an eighth of its cell batch: the count does not grow with the deepest
+level's batches.
 
 ``--phases 1,8,9,10,11`` runs a subset (1 is always run); ``--quick`` cuts
 phase 8's deep solves to a quarter of the box, for a first look at a new
@@ -74,7 +84,7 @@ if not torch.cuda.is_available():
 
 from legmov_tpu_torch import cli, get_m2_leg, get_moonbot_leg, viz
 from legmov_tpu_torch import io as lio
-from legmov_tpu_torch import map_bench
+from legmov_tpu_torch import map_bench, reach_probe
 from legmov_tpu_torch.config import SolverConfig
 from legmov_tpu_torch.models import hier_solver as hs
 from legmov_tpu_torch.models.pipeline import (
@@ -88,6 +98,7 @@ from legmov_tpu_torch.ops import csr_cell_eval as cce
 from legmov_tpu_torch.ops import cuda_multileg as cm
 from legmov_tpu_torch.ops import cuda_multileg_dist as cmd
 from legmov_tpu_torch.ops import quaternion as quat
+from legmov_tpu_torch.ops import trig32
 from legmov_tpu_torch.ops.csr_grid import (
     ball_columns,
     build_csr_grid,
@@ -1123,6 +1134,35 @@ def phase_map_scale():
     say(f"  instrumented solve: wall {wall2:.3f} s, the {launches} K4 "
         f"launches take {k4_ms:.1f} ms of it; queue building and the rest "
         f"of the eager code {queue_share:.3f} of the wall")
+    # K4's bound on this path, counted as on `cli map`'s (k4_need: the steps
+    # that serve legs never found; every step that serves a leg missing at
+    # launch as the other end) on a third run, since the count's tensor
+    # code would sit between the timed launches
+    k4_calls = []
+
+    def count(real, tab, legs_in, starts, lens, masks, xs, ys, zs, consts,
+              *a, **kw):
+        out = real(tab, legs_in, starts, lens, masks, xs, ys, zs, consts, *a,
+                   **kw)
+        if out.is_cuda and starts.numel():
+            A, S = starts.shape
+            k4_calls.append((k4_need(tab, legs_in, starts, lens, masks, out),
+                             A * S * 12 + tab.numel() * 4
+                             + 2 * A * legs_in.shape[1],
+                             cm.leg_flops(consts[0])))
+        return out
+
+    with intercepted(cm, "csr_window_kernel", count):
+        _, quorum3, _, _, _ = map_bench.solve_chunks(
+            solve, csr, cols, body_d, quats_d, k, MAP_CHUNK)
+    check(np.array_equal(quorum3, quorum) and len(k4_calls) == launches,
+          "the counted solve differs")
+    lo, hi = k4_bounds(k4_calls)
+    PATH_TIMES["csr_window", "the 10.24 M map"].update(
+        bound_ms=lo, bound_ms_every_missing_leg=hi)
+    say(f"    K4's bound on the 10.24 M map: the steps serving legs never "
+        f"found {lo:.3f} ms (share {lo / k4_ms:.3f} of {k4_ms:.1f} ms); "
+        f"every step serving a leg missing at launch {hi:.3f} ms")
     return {"poses_per_s": MAP_POSES / wall, "launches": launches,
             "queue_share": queue_share,
             "round": captured[0], "csr": csr, "robot": robot,
@@ -1567,6 +1607,25 @@ def no_syncs_call(fn, *a, **kw):
         return fn(*a, **kw)
 
 
+def sync_sites(found):
+    """Where the recorded synchronising operations were called from, as
+    ``file:line xN``, most frequent first."""
+    sites = collections.Counter(
+        f"{os.path.relpath(w.filename)}:{w.lineno}" for w in found)
+    return ", ".join(f"{k} x{v}" for k, v in sites.most_common())
+
+
+def syncs_are_host_syncs(tag, line, kept):
+    """The solve's ``host_syncs`` (its JSON line) is what PyTorch's sync
+    debug mode counted over the whole ``cli solve``: one packed fetch a
+    level and nothing else."""
+    n = len(kept["syncs"])
+    check(n == line["host_syncs"] == line["max_depth"] + 1,
+          f"{tag}: sync debug mode counted {n} synchronising operations, "
+          f"host_syncs {line['host_syncs']}, {line['max_depth'] + 1} levels; "
+          f"called from {sync_sites(kept['syncs'])}")
+
+
 def sync_check_sees_a_read():
     """The sync counter counts a plain device read and the strict mode
     raises on one (so that their zeros mean something)."""
@@ -1597,9 +1656,10 @@ def identity_levels(tag, line, la, kept):
         + " / ".join(f"{lv['dispatch_s']:.4f}" for lv in ident)
         + f" (sum {sum(lv['dispatch_s'] for lv in ident):.3f} s, fetch "
         f"{sum(lv['fetch_s'] for lv in ident):.3f} s); the whole solve: "
-        f"{len(kept['syncs'])} synchronising CUDA operations, of which "
-        f"{line['host_syncs']} are the levels' fetches ({len(levels)} "
-        "levels)")
+        f"{len(kept['syncs'])} synchronising CUDA operations (sync debug "
+        f"mode), host_syncs {line['host_syncs']}: the levels' fetches "
+        f"({len(levels)} levels, {levels[-1]['batches']} batches at the "
+        "deepest)")
     return [dict(c, depth=i) for i, c in enumerate(kept["cells"].values())]
 
 
@@ -1628,9 +1688,9 @@ def phase_cli_solve(data, quick):
               and la["cell_cm_perleg"] == 0 and la["item_cells"] == 0,
               f"{mode}: unexpected launches {la}")
         out["cells"][mode] = identity_levels(mode, line, la, kept)
-        check(line["host_syncs"] == line["max_depth"] + 1,
-              f"{mode}: {line['host_syncs']} synchronisations for "
-              f"{line['max_depth'] + 1} levels")
+        syncs_are_host_syncs(mode, line, kept)
+        out.setdefault("syncs", {})[mode] = (
+            len(kept["syncs"]), kept["stats"]["per_level"][-1]["batches"])
         check("kernel_args" in kept and "queue_args" in kept,
               f"{mode}: no cell-kernel batch captured")
         out[mode] = dict(record=rec, kernel_args=kept["kernel_args"],
@@ -1639,6 +1699,25 @@ def phase_cli_solve(data, quick):
         out["launches"].setdefault("distance_cells", la["distance_cells"])
         out["seconds"][mode] = line["seconds"]
         out["lines"][mode] = line
+    # the count does not grow with the deepest level's batches: the per-leg
+    # solve again at an eighth of its cell batch
+    if not quick:
+        line, _, _, kept = run_solve(
+            data, "--legs", "4", "--k", "4", *deep, "--mode", "per-leg",
+            "--csr-cell-chunk", "4096", sync_check=True)
+        got = (line["cells"], line["valid"], line["edge"])
+        check(got == SOLVE_COUNTS["per-leg"],
+              f"per-leg at --csr-cell-chunk 4096: cells/valid/edge {got}")
+        syncs_are_host_syncs("per-leg at --csr-cell-chunk 4096", line, kept)
+        n, batches = len(kept["syncs"]), kept["stats"]["per_level"][-1][
+            "batches"]
+        check(n == out["syncs"]["per-leg"][0]
+              and batches > out["syncs"]["per-leg"][1],
+              f"per-leg: {n} synchronisations over {batches} deepest-level "
+              f"batches against {out['syncs']['per-leg']}")
+        say(f"  per-leg at --csr-cell-chunk 4096: {batches} batches at the "
+            f"deepest level (was {out['syncs']['per-leg'][1]}), {n} "
+            "synchronising operations (unchanged), the same cells")
     # the chunk-major per-leg form is no default of the solver: it is reached
     # through the evaluator factory.  Drive it that way on the whole captured
     # batch of the per-leg solve, whose flags the quat-major form gave.
@@ -1679,10 +1758,11 @@ def phase_cli_solve(data, quick):
             cells=True)
         check(la["cell_shared"] > 0 and line["edge"] > 0
               and line["cells"] > line["edge"], f"hexapod solve: {line}")
-        check(line["host_syncs"] == line["max_depth"] + 1,
-              f"hexapod k={k}: {line['host_syncs']} synchronisations")
         out["cells"]["hex" + k] = identity_levels(f"hexapod k={k}", line, la,
                                                   kept)
+        syncs_are_host_syncs(f"hexapod k={k}", line, kept)
+        out["syncs"]["hex" + k] = (
+            len(kept["syncs"]), kept["stats"]["per_level"][-1]["batches"])
         out["seconds"]["hex" + k] = line["seconds"]
         out["lines"]["hex" + k] = line
         out["hex" + k] = dict(record=rec, kernel_args=kept["kernel_args"],
@@ -2549,9 +2629,131 @@ def phase_identity_cells(solve):
     return rows, total_bad
 
 
+def phase_reach_probe():
+    """K7, the io-only floor of tools/reach_kernel_probe.py, through the
+    probe's own function (``python -m legmov_tpu_torch.reach_probe``) at
+    16,777,216 points, timed in turns with K1; then held against its plain
+    version bit for bit on the same grid with NaN, inf and zero-sum rows,
+    on an unaligned view and a ragged length."""
+    say("phase 12: the reach probe: K1 and its io-only floor (K7) in turns, "
+        f"{N_REACH} points of bench.py's grid, median of 20 launches a round")
+    ck.io_only_kernel.launches = 0
+    res = reach_probe.probe(N_REACH, 4, say=lambda line: say("  " + line))
+    launches = ck.io_only_kernel.launches
+    check(launches > 0, "the probe launched no io-only kernel")
+    g = reach_probe.make_grid(N_REACH)
+    g[:1024] = np.nan
+    g[1024:2048, 0] = np.inf
+    g[2048:3072, 1] = -np.inf
+    g[3072:4096] = [np.inf, -np.inf, 1.0]
+    g[4096:8192, 2] = -(g[4096:8192, 0] + g[4096:8192, 1])
+    g[8192:9216] = [-0.0, 0.0, -0.0]
+    comps = tuple(torch.from_numpy(np.ascontiguousarray(g[:, i])).to(DEV)
+                  for i in range(3))
+    bad = 0
+    for cut in (slice(None), slice(1, None), slice(0, N_REACH - 3),
+                slice(5, 4103)):
+        part = tuple(c[cut] for c in comps)
+        bad += int((ck.io_only_kernel(*part)
+                    != ck.io_only_plain(*part)).sum())
+    check(bad == 0, f"io-only kernel: {bad} bits differ from its plain "
+          "version")
+    plain_ms = time_cuda(lambda: ck.io_only_plain(*comps))
+    k1, io = res["K1"]["ms"], res["io_only"]["ms"]
+    say(f"  io-only == plain version on {N_REACH} points with NaN/inf/zero-"
+        f"sum rows, an unaligned view and ragged lengths (0 of "
+        f"{4 * N_REACH} bits differ); plain {plain_ms:.4f} ms; bound "
+        f"{res['bound_ms']:.4f} ms (bytes): K7 at {res['bound_ms'] / io:.3f}"
+        f" of it; K1 {k1:.4f} ms, the floor {io / k1:.3f} of K1 "
+        f"({launches} io-only launches by the probe)")
+    return {"launches": launches, "max_abs_err": float(bad), "n": N_REACH,
+            "ms": io, "plain_ms": plain_ms, "bound_ms": res["bound_ms"],
+            "bound_by": "bytes", "k1_ms": k1,
+            "k1_over_floor": res["k1_over_floor"],
+            "rounds_ms": res["io_only"]["rounds_ms"],
+            "k1_rounds_ms": res["K1"]["rounds_ms"]}
+
+
+def all_bits_equal(a, b):
+    """Whether two float32 tensors hold the same bits everywhere (signed
+    zeros apart, NaN against NaN), wherever each lives."""
+    a, b = a.cpu().contiguous(), b.cpu().contiguous()
+    same = a.view(torch.int32) == b.view(torch.int32)
+    return bool((same | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+def phase_tables():
+    """Tables built on the card equal those built on the CPU, bit for bit:
+    ops/trig32.py's functions on 10^6 seeded inputs each, the quaternion
+    functions, ``oriented_tables`` of cli map's pose chunk (identity and
+    seeded orientations) for the three robots the tests use, and K5's
+    level rows; and ``oriented_tables``' time per cli map chunk."""
+    say("phase 13: tables on the card == tables on the CPU, bit for bit")
+    rng = np.random.default_rng(13)
+    n = 1_000_000
+    x = np.concatenate([
+        rng.uniform(-4 * np.pi, 4 * np.pi, n // 2),
+        rng.choice([-1, 1], n // 2) * 10.0 ** rng.uniform(-6, 38, n // 2),
+        [0.0, -0.0, np.nan, np.inf, -np.inf, 0.75, 120.0, 1e-40]],
+    ).astype(np.float32)
+    y = rng.uniform(-2, 2, x.shape[0]).astype(np.float32)
+    a = rng.uniform(-1, 1, x.shape[0]).astype(np.float32)
+    for name, fn, args in (
+            ("sincos", lambda t: torch.stack(trig32.sincos(t)), (x,)),
+            ("atan2", trig32.atan2, (y, x)), ("asin", trig32.asin, (a,)),
+            ("sqrt", trig32.sqrt, (np.abs(x),))):
+        cpu = fn(*(torch.from_numpy(v) for v in args))
+        dev = fn(*(torch.from_numpy(v).to(DEV) for v in args))
+        check(all_bits_equal(dev, cpu), f"trig32.{name}: card != CPU")
+    rpy = rng.uniform(-0.5, 0.5, (2048, 3)).astype(np.float32)
+    q_cpu = quat.from_rpy(rpy[:, 0], rpy[:, 1], rpy[:, 2])
+    q_dev = quat.from_rpy(*(torch.from_numpy(rpy[:, i].copy()).to(DEV)
+                            for i in range(3)))
+    check(all_bits_equal(q_dev, q_cpu), "from_rpy: card != CPU")
+    robots = {"quad_moonbot": make_robot(QUAD_MOUNTS, leg_fn=get_moonbot_leg),
+              "quad_m2": make_robot(QUAD_MOUNTS, leg_fn=get_m2_leg),
+              "hex_m2": make_robot(HEX_MOUNTS, leg_fn=get_m2_leg)}
+    body = torch.from_numpy(
+        rng.uniform(-300, 300, (2048, 3)).astype(np.float32))
+    ident = torch.tensor([1.0, 0, 0, 0]).repeat(2048, 1)
+    times = {}
+    for name, robot in robots.items():
+        for qname, q in (("identity", ident), ("seeded", q_cpu)):
+            want = cm.oriented_tables(body, q, robot)
+            got = cm.oriented_tables(body.to(DEV), q.to(DEV), robot)
+            check(all_bits_equal(got, want),
+                  f"oriented_tables {name} {qname}: card != CPU")
+        qs = q_cpu[:27]
+        blocks = cmd.leg_blocks(qs.numpy(), robot)
+        args = ((20.0,) * 3, (40.0,) * 3, 0.0, 711.0)
+        want = cmd.level_table(torch.as_tensor(blocks), qs, *args)
+        got = cmd.level_table(torch.as_tensor(blocks).to(DEV), qs.to(DEV),
+                              *args)
+        check(all_bits_equal(got, want), f"level_table {name}: card != CPU")
+        # the time per cli map chunk (2,048 poses, the identity)
+        b_d, q_d = body.to(DEV), ident.to(DEV)
+        ms = time_cuda(lambda: cm.oriented_tables(b_d, q_d, robot))
+        walls = []
+        for _ in range(20):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cm.oriented_tables(b_d, q_d, robot)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        times[name] = (ms, statistics.median(walls))
+    say("  trig32 sin/cos/atan2/asin/sqrt on 10^6 inputs each, from_rpy, "
+        "oriented_tables (identity and seeded, 2,048 poses) and K5's level "
+        "rows of the three robots: card == CPU")
+    for name, (ms, wall) in times.items():
+        say(f"  oriented_tables per cli map chunk (2,048 poses, {name}): "
+            f"{ms:.3f} ms between CUDA events, {wall:.3f} ms host wall "
+            "(median of 20)")
+    return times
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13",
                     help="comma-separated phases to run (1 always runs; 3 "
                     "and 4 need 2, 7 needs 6, 9, 10 and 11 need 8)")
     ap.add_argument("--quick", action="store_true",
@@ -2569,7 +2771,7 @@ def main(argv=None):
                     "tree's; repeatable")
     args = ap.parse_args(argv)
     on = {int(p) for p in args.phases.split(",")} | {1}
-    whole = on >= set(range(1, 12)) and not args.quick
+    whole = on >= set(range(1, 14)) and not args.quick
 
     t_start = time.perf_counter()
     clock = [t_start]
@@ -2625,6 +2827,13 @@ def main(argv=None):
     if 7 in on:
         row3, row4 = phase_multileg_kernels(scale, args.against_multileg)
         took(7)
+    probe = None
+    if 12 in on:
+        probe = phase_reach_probe()
+        took(12)
+    if 13 in on:
+        phase_tables()
+        took(13)
 
     say(smi)
     if not whole:
@@ -2685,8 +2894,19 @@ def main(argv=None):
         "pr4_form_ms": head["pr4_form_ms"], "occupancy":
         occupancy["distance_cells"], "batches": ident_rows,
         **on_paths("distance_cells")}
+    check(probe["launches"] > 0, "the io-only kernel was launched no time "
+          "by the probe")
+    io_entry = {
+        "name": "legmov_io_only_kernel", "route": "cuda",
+        "source": "legmov_tpu_torch/csrc/leg_kernels.cu",
+        "replaces": "tools/reach_kernel_probe.py:57", **probe,
+        "library_ms": None,
+        "paths": {"python -m legmov_tpu_torch.reach_probe": {
+            "launches": probe["launches"]}}}
     say(json.dumps({"kernels": [
-        entry("reachability", "legmov_reach_kernel", 245, "bench-16M"),
+        entry("reachability", "legmov_reach_kernel", 245, "bench-16M")
+        | {"io_only_floor_ms": probe["ms"], "probe_ms": probe["k1_ms"],
+           "over_floor": probe["k1_over_floor"]},
         entry("distance", "legmov_dist_kernel", 588, "bench-4M",
               ) | {"forms": ["legmov_dist_kernel",
                                "legmov_dist_cells_kernel"]}
@@ -2724,6 +2944,7 @@ def main(argv=None):
         cell_entry("legmov_cell_cm_perleg_kernel", "cell_cm_perleg",
                    "legmov_tpu/ops/csr_cell_eval.py:1166",
                    solve_launches_["cell_cm_perleg"]),
+        io_entry,
     ]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

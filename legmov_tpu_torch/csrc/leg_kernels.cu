@@ -1,4 +1,5 @@
-// Single-leg reachability and distance kernels for Hopper (sm_90a).
+// Single-leg reachability and distance kernels for Hopper (sm_90a), and the
+// reach probe's io-only floor (K7).
 //
 // Build (legmov_tpu_torch/ops/_build.py does this at first use):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false
@@ -665,6 +666,48 @@ legmov_dist_cells_kernel(const float* __restrict__ centers,
 }
 
 // ---------------------------------------------------------------------------
+// K7, the reach probe's io-only floor (tools/reach_kernel_probe.py
+// make_io_only): K1's input and output with no geometry, `(x + y) + z > 0`
+// a point (NaN gives 0), so that its time is the memory floor of K1's access
+// pattern.  The TPU form pads to [rows, 128] tiles; here the three SoA arrays
+// stream in coalesced 16-byte loads (four points a thread a step, their four
+// bytes in one 4-byte store) when every pointer is aligned, with a scalar
+// loop for the tail and for unaligned arrays.  The launcher uses K1's grid
+// and block, so the floor measures the same launch.
+// ---------------------------------------------------------------------------
+
+extern "C" __global__ void __launch_bounds__(LEGMOV_BLOCK)
+legmov_io_only_kernel(const float* __restrict__ xs,
+                      const float* __restrict__ ys,
+                      const float* __restrict__ zs,
+                      unsigned char* __restrict__ out, long long n) {
+    const long long step = (long long)gridDim.x * blockDim.x;
+    const long long first = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    long long done = 0;
+    const bool aligned =
+        ((((unsigned long long)xs | (unsigned long long)ys |
+           (unsigned long long)zs) & 15ull) == 0) &&
+        (((unsigned long long)out & 3ull) == 0);
+    if (aligned) {
+        const float4* x4 = reinterpret_cast<const float4*>(xs);
+        const float4* y4 = reinterpret_cast<const float4*>(ys);
+        const float4* z4 = reinterpret_cast<const float4*>(zs);
+        uchar4* o4 = reinterpret_cast<uchar4*>(out);
+        const long long n4 = n >> 2;
+        for (long long i = first; i < n4; i += step) {
+            const float4 a = x4[i], b = y4[i], c = z4[i];
+            o4[i] = make_uchar4((a.x + b.x) + c.x > 0.0f,
+                                (a.y + b.y) + c.y > 0.0f,
+                                (a.z + b.z) + c.z > 0.0f,
+                                (a.w + b.w) + c.w > 0.0f);
+        }
+        done = n4 << 2;
+    }
+    for (long long i = done + first; i < n; i += step)
+        out[i] = (xs[i] + ys[i]) + zs[i] > 0.0f;
+}
+
+// ---------------------------------------------------------------------------
 // C launchers
 // ---------------------------------------------------------------------------
 
@@ -690,6 +733,14 @@ extern "C" int legmov_reachability(const float* x, const float* y,
     if (n <= 0) return 0;
     legmov_reach_kernel<<<grid_for(n), LEGMOV_BLOCK, 0, (cudaStream_t)stream>>>(
         x, y, z, in_stride, out, n, *params);
+    return (int)cudaGetLastError();
+}
+
+extern "C" int legmov_io_only(const float* x, const float* y, const float* z,
+                              unsigned char* out, long long n, void* stream) {
+    if (n <= 0) return 0;
+    legmov_io_only_kernel<<<grid_for(n), LEGMOV_BLOCK, 0,
+                            (cudaStream_t)stream>>>(x, y, z, out, n);
     return (int)cudaGetLastError();
 }
 

@@ -117,7 +117,7 @@ def _upload(dev: torch.device, *arrays: np.ndarray) -> list[torch.Tensor]:
     On a card they travel in one pinned buffer and one asynchronous copy, so
     the host does not wait for the device (the caching host allocator keeps
     the buffer until the copy has run)."""
-    arrays = [np.ascontiguousarray(a) for a in arrays]
+    arrays = [np.asarray(a, order="C") for a in arrays]  # 0-d stays 0-d
     if dev.type != "cuda":
         return [torch.from_numpy(a).to(dev) for a in arrays]
     offs, n = [], 0
@@ -129,8 +129,9 @@ def _upload(dev: torch.device, *arrays: np.ndarray) -> list[torch.Tensor]:
     for a, o in zip(arrays, offs):
         buf[o:o + a.nbytes] = a.reshape(-1).view(np.uint8)
     on_dev = host.to(dev, non_blocking=True)
-    return [on_dev[o:o + a.nbytes].view(torch.from_numpy(a[:0]).dtype)
-            .view(a.shape) for a, o in zip(arrays, offs)]
+    return [on_dev[o:o + a.nbytes]
+            .view(torch.from_numpy(a.reshape(-1)[:0]).dtype).view(a.shape)
+            for a, o in zip(arrays, offs)]
 
 
 def _eval_cells(
@@ -416,7 +417,7 @@ def solve_positionability(
     k = cfg.legs_for_stability
     reach = _total_reach(robot)
     quats_np = orientation_samples(cfg)
-    quats = torch.from_numpy(quats_np).to(dev)
+    quats, = _upload(dev, quats_np)
     min_box = np.asarray(cfg.min_box, _f32)
     S = int(quats_np.shape[0])
 
@@ -440,13 +441,14 @@ def solve_positionability(
             n = S if use_rot else 1
             eager_ws[use_rot] = [
                 workspace_tensors(ws, dev) for ws in
-                oriented_workspace_items(quats[:n].cpu(), robot)]
+                oriented_workspace_items(torch.from_numpy(quats_np[:n]),
+                                         robot)]
         return _eval_cells(*a, use_rot=use_rot, workspaces=eager_ws[use_rot],
                            **kw)
 
     F = footholds.shape[0]
     fh = np.ascontiguousarray(footholds, dtype=_f32)
-    fh_dev = torch.from_numpy(fh).to(dev)
+    fh_dev, = _upload(dev, fh)
 
     # CSR-streaming candidates for orientation-active levels: footholds
     # live on the device ONCE in cell-sorted CSR form; per-cell elongated
@@ -462,9 +464,17 @@ def solve_positionability(
         # chunk at the cost of coarser slab role masks.
         cs_cell = reach * float(
             os.environ.get("LEGMOV_HIER_CS_FRAC", "1.0") or 1.0)
-        csr = build_csr_grid(fh, cs_cell, device=dev)
-        csr_env = dict(csr=csr, starts_h=csr.starts.cpu().numpy(),
-                       origin_h=csr.origin.cpu().numpy(), fns={})
+        # built on the host, its arrays and the cell size (a 0-d tensor for
+        # build_cell_queue's divisions) up in one asynchronous copy
+        csr_h = build_csr_grid(fh, cs_cell, device="cpu")
+        parts = [t.numpy() for t in (csr_h.xs, csr_h.ys, csr_h.zs,
+                                     csr_h.starts, csr_h.origin)]
+        *arrays, cs_d = _upload(dev, *parts,
+                                np.asarray(csr_h.cell_size, _f32))
+        csr = csr_h._replace(**dict(zip(("xs", "ys", "zs", "starts",
+                                         "origin"), arrays)))
+        csr_env = dict(csr=csr, starts_h=parts[3], origin_h=parts[4],
+                       cell_size=cs_d, fns={})
 
     n_syncs = 0
     per_level: list[dict] = []
@@ -523,11 +533,15 @@ def solve_positionability(
                     window=csr_window, chunk_major=chunk_major, audit=True,
                     chunk_masks=chunk_masks, plain=not fused)
             ev_csr = csr_env["fns"][key]
-            legtab = cce.level_tables(quats, child_half, half, robot,
-                                      float(margin), reach)
-            rmounts, reach_l_d, r_cell = cce.ball_mask_params(
-                quats, robot, child_half, float(margin))
-            elong_d = torch.from_numpy(elong_np).to(dev)
+            # the level's constants, built on the host from the host copy
+            # of the orientations, go up in one asynchronous copy
+            legtab_h = cce.level_tables(quats_np, child_half, half, robot,
+                                        float(margin), reach)
+            rmounts_h, reach_l_h, r_cell = cce.ball_mask_params(
+                torch.from_numpy(quats_np), robot, child_half, float(margin))
+            legtab, rmounts, reach_l_d, elong_d = _upload(
+                dev, legtab_h.numpy(), rmounts_h.numpy(), reach_l_h.numpy(),
+                elong_np)
             batch = min(csr_cell_chunk, C)
             level.update(kind="csr", batch=batch, window=csr_window,
                          maxch=0)
@@ -538,11 +552,11 @@ def solve_positionability(
                     csr_env["origin_h"], csr.cell_size, csr.dims, csr_window)
                 level["maxch"] = max(level["maxch"], maxch)
                 res = ev_csr(
-                    torch.from_numpy(children[s:e]).to(dev),
-                    torch.from_numpy(child_parent_valid[s:e]).to(dev),
+                    *_upload(dev, children[s:e], child_parent_valid[s:e]),
                     legtab, elong_d, rmounts, reach_l_d, r_cell,
                     csr.xs, csr.ys, csr.zs, csr.starts, csr.origin,
-                    cell_size=csr.cell_size, dims=csr.dims, q_steps=maxch)
+                    cell_size=csr_env["cell_size"], dims=csr.dims,
+                    q_steps=maxch)
                 v, ed, lf, over, counts = res
                 pending.append((s, e - s, (v, ed, lf)))
                 over_parts.append(over.reshape(1))

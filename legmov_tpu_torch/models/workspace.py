@@ -47,20 +47,28 @@ from legmov_tpu_torch.models.leg import LegDimensions
 _f32 = np.float32
 
 
-def _cos(a):
-    """float32 cosine rounded once from the float64 value.
+def _sincos(a):
+    """(sin, cos) of float32 ``a`` as numpy float32 arrays of its shape: the
+    JAX package's float32 values (glibc's ``sinf``/``cosf``, which XLA:CPU
+    calls), from :mod:`legmov_tpu_torch.ops.trig32`.  numpy's own float32
+    ``sin``/``cos`` are SIMD approximations whose last bit differs from
+    those and varies with the host CPU."""
+    # here, not at the top: the ops package imports this module
+    from legmov_tpu_torch.ops import trig32
 
-    numpy's float32 ``cos``/``sin`` are SIMD approximations whose last bit
-    varies with the host CPU; going through float64 makes the tables the
-    same on every machine (and equal to what XLA's float32 trig returns for
-    the shipped legs, so the tables match the JAX package's bit for bit).
-    """
-    return np.cos(np.asarray(a, np.float64)).astype(_f32)
+    s, c = trig32.sincos(torch.from_numpy(np.array(a, _f32, ndmin=1)))
+    shape = np.shape(a)
+    return s.numpy().reshape(shape), c.numpy().reshape(shape)
+
+
+def _cos(a):
+    """float32 cosine with the JAX package's bits (see :func:`_sincos`)."""
+    return _sincos(a)[1]
 
 
 def _sin(a):
-    """float32 sine rounded once from the float64 value (see :func:`_cos`)."""
-    return np.sin(np.asarray(a, np.float64)).astype(_f32)
+    """float32 sine with the JAX package's bits (see :func:`_sincos`)."""
+    return _sincos(a)[0]
 
 
 class LegWorkspace(NamedTuple):
@@ -133,17 +141,6 @@ def build_workspace(leg: LegDimensions) -> LegWorkspace:
     min_tib, max_tib = leg.min_angle_tibia, leg.max_angle_tibia
     abs_pos, abs_neg = leg.tibia_absolute_pos, leg.tibia_absolute_neg
 
-    # --- the six base circles (circles.cu.h:80-135, leg_geometry.cu.h) ----
-    # min femur->tip distance: |femur + tibia * e^{i*min_tibia}|
-    mx = fem + tib * _cos(min_tib)
-    my = tib * _sin(min_tib)
-    inner = _circle(0.0, 0.0, np.sqrt(mx * mx + my * my), False)
-    outer = _circle(0.0, 0.0, fem + tib, True)
-    fa_pos = _circle(tib * _cos(abs_pos), tib * _sin(abs_pos), fem, True)
-    fa_neg = _circle(tib * _cos(abs_neg), tib * _sin(abs_neg), fem, True)
-    wing_pos = _circle(fem * _cos(max_fem), fem * _sin(max_fem), tib, True)
-    wing_neg = _circle(fem * _cos(min_fem), fem * _sin(min_fem), tib, True)
-
     # --- region constants (find_region, circles.cu.h:48-78) --------------
     middle_angle = (
         np.maximum(abs_neg, min_fem) + np.minimum(abs_pos, max_fem)
@@ -158,6 +155,68 @@ def build_workspace(leg: LegDimensions) -> LegWorkspace:
     # Angle past which the leg is fully extended, per region.
     sat_up = np.where(fal_up, max_fem, abs_pos)
     sat_low = np.where(fal_low, min_fem, abs_neg)
+
+    # --- corner points (insert_intersecv2, circles.cu.h:417-476) ---------
+    # 10 candidate (femur, tibia) configurations where two constraints meet;
+    # keep those inside all three joint-limit boxes (within EPS).
+    fem_list = np.stack(
+        [
+            min_fem,
+            min_fem,
+            min_fem,
+            abs_neg - min_tib,
+            abs_neg - max_tib,
+            max_fem,
+            max_fem,
+            max_fem,
+            abs_pos - min_tib,
+            abs_pos - min_tib,
+        ]
+    )
+    tib_list = np.stack(
+        [
+            max_tib,
+            min_tib,
+            abs_neg - min_fem,
+            min_tib,
+            max_tib,
+            min_tib,
+            max_tib,
+            abs_pos - max_fem,
+            abs_pos - (abs_pos - min_tib),
+            abs_pos - (abs_pos - min_tib),
+        ]
+    )
+    eps = _f32(EPS)
+    abs_ang = fem_list + tib_list
+    corner_valid = (
+        (fem_list < max_fem + eps)
+        & (fem_list > min_fem - eps)
+        & (tib_list < max_tib + eps)
+        & (tib_list > min_tib - eps)
+        & (abs_ang < abs_pos + eps)
+        & (abs_ang > abs_neg - eps)
+    )
+
+    # every angle the tables take a sine or cosine of, in one call: the
+    # base circles' (0-4), the corners' femur and absolute angles (5-14,
+    # 15-24) and the unit directions' (25-29)
+    sn, cs = _sincos(np.concatenate([
+        np.asarray([min_tib, abs_pos, abs_neg, max_fem, min_fem], _f32),
+        fem_list, abs_ang,
+        np.asarray([leg.max_angle_coxa, leg.min_angle_coxa, middle_angle,
+                    sat_low, sat_up], _f32)]))
+
+    # --- the six base circles (circles.cu.h:80-135, leg_geometry.cu.h) ----
+    # min femur->tip distance: |femur + tibia * e^{i*min_tibia}|
+    mx = fem + tib * cs[0]
+    my = tib * sn[0]
+    inner = _circle(0.0, 0.0, np.sqrt(mx * mx + my * my), False)
+    outer = _circle(0.0, 0.0, fem + tib, True)
+    fa_pos = _circle(tib * cs[1], tib * sn[1], fem, True)
+    fa_neg = _circle(tib * cs[2], tib * sn[2], fem, True)
+    wing_pos = _circle(fem * cs[3], fem * sn[3], tib, True)
+    wing_neg = _circle(fem * cs[4], fem * sn[4], tib, True)
 
     def select(cond, a, b):
         """Per-field select between two circles."""
@@ -222,49 +281,9 @@ def build_workspace(leg: LegDimensions) -> LegWorkspace:
 
     circle_x, circle_y, circle_r, circle_attract = (stack(i) for i in range(4))
 
-    # --- corner points (insert_intersecv2, circles.cu.h:417-476) ---------
-    # 10 candidate (femur, tibia) configurations where two constraints meet;
-    # keep those inside all three joint-limit boxes (within EPS).
-    fem_list = np.stack(
-        [
-            min_fem,
-            min_fem,
-            min_fem,
-            abs_neg - min_tib,
-            abs_neg - max_tib,
-            max_fem,
-            max_fem,
-            max_fem,
-            abs_pos - min_tib,
-            abs_pos - min_tib,
-        ]
-    )
-    tib_list = np.stack(
-        [
-            max_tib,
-            min_tib,
-            abs_neg - min_fem,
-            min_tib,
-            max_tib,
-            min_tib,
-            max_tib,
-            abs_pos - max_fem,
-            abs_pos - (abs_pos - min_tib),
-            abs_pos - (abs_pos - min_tib),
-        ]
-    )
-    eps = _f32(EPS)
-    abs_ang = fem_list + tib_list
-    corner_valid = (
-        (fem_list < max_fem + eps)
-        & (fem_list > min_fem - eps)
-        & (tib_list < max_tib + eps)
-        & (tib_list > min_tib - eps)
-        & (abs_ang < abs_pos + eps)
-        & (abs_ang > abs_neg - eps)
-    )
-    corner_x = fem * _cos(fem_list) + tib * _cos(abs_ang)
-    corner_y = fem * _sin(fem_list) + tib * _sin(abs_ang)
+    # the corner points of the configurations above
+    corner_x = fem * cs[5:15] + tib * cs[15:25]
+    corner_y = fem * sn[5:15] + tib * sn[15:25]
     corner_xy = np.stack([corner_x, corner_y], axis=-1)
 
     # --- fast-path tables --------------------------------------------------
@@ -275,8 +294,8 @@ def build_workspace(leg: LegDimensions) -> LegWorkspace:
     lo = r_tab - margin
     lo2 = np.where(lo < 0, _f32(-1.0), lo * lo)
 
-    def unit_dir(theta):
-        return np.stack([_cos(theta), _sin(theta)]).astype(_f32)
+    # unit directions of the coxa limits, the middle and the saturations
+    dirs = np.stack([cs[25:30], sn[25:30]], axis=-1)
 
     half_pi = _f32(np.pi / 2)
     sat_angles = np.stack([sat_low, sat_up]).astype(_f32)
@@ -298,15 +317,13 @@ def build_workspace(leg: LegDimensions) -> LegWorkspace:
         circle_r2=r2.astype(_f32),
         circle_hi2=hi2.astype(_f32),
         circle_lo2=lo2.astype(_f32),
-        coxa_max_dir=unit_dir(leg.max_angle_coxa),
-        coxa_min_dir=unit_dir(leg.min_angle_coxa),
+        coxa_max_dir=dirs[0],
+        coxa_min_dir=dirs[1],
         coxa_gt_possible=np.asarray(leg.max_angle_coxa < half_pi),
         coxa_lt_possible=np.asarray(leg.min_angle_coxa > -half_pi),
-        mid_dir=unit_dir(middle_angle),
+        mid_dir=dirs[2],
         mid_neg=np.asarray(middle_angle, _f32) < 0,
-        sat_dir=np.stack(
-            [unit_dir(sat_low), unit_dir(sat_up)]
-        ).astype(_f32),
+        sat_dir=dirs[3:5],
         sat_neg=sat_angles < 0,
     )
 

@@ -153,27 +153,34 @@ def ball_mask_params(quats: torch.Tensor, robot: LegDimensions, half,
             torch.as_tensor(np.asarray(reach_l, _f32), device=dev), r_cell)
 
 
-def level_tables(quats: torch.Tensor, half, parent_half, robot: LegDimensions,
+def level_tables(quats, half, parent_half, robot: LegDimensions,
                  margin: float, reach: float, blocks=None) -> torch.Tensor:
-    """``[S, W]`` per-orientation tables for the cell-evaluation kernels.
+    """``[S, W]`` per-orientation tables for the cell-evaluation kernels, a
+    CPU tensor.
 
     The leg workspace blocks depend only on the orientation — not the cell
     — so one row per quat serves every cell of the level; the kernels read
     the cell position / parent-valid from their own operand instead of the
-    table's body / pv slots (zeroed here).  ``blocks`` is
-    ``cuda_multileg_dist.leg_blocks(quats, robot)`` when the caller keeps it
-    (a tensor on the quaternions' device)."""
-    quats = quats.to(torch.float32)
-    dev = quats.device
-    S = quats.shape[0]
+    table's body / pv slots (zeroed here).  ``quats`` is the host copy of
+    the level's orientations (numpy ``[S, 4]`` or a CPU tensor): the table
+    is built on the host and the caller moves it to the card with the
+    level's other constants (models/hier_solver.py, one asynchronous copy a
+    level), so that no level reads the device back.  ``blocks`` is
+    ``cuda_multileg_dist.leg_blocks(quats, robot)`` when the caller keeps
+    it."""
+    if isinstance(quats, torch.Tensor):
+        if quats.device.type != "cpu":
+            raise ValueError("level_tables takes the host copy of the "
+                             "orientations, not a device tensor")
+        quats = quats.numpy()
+    quats_h = np.ascontiguousarray(quats, dtype=_f32)
+    S = quats_h.shape[0]
     if blocks is None:
-        blocks = torch.as_tensor(
-            cmd.leg_blocks(quats.cpu().numpy(), robot), device=dev)
+        blocks = cmd.leg_blocks(quats_h, robot)
     return cmd.tables_from_blocks(
-        blocks, torch.arange(S, device=dev), quats,
-        torch.zeros((S, 3), dtype=torch.float32, device=dev),
-        torch.zeros(S, dtype=torch.bool, device=dev), half, parent_half,
-        margin, reach)
+        torch.as_tensor(blocks), torch.arange(S), torch.from_numpy(quats_h),
+        torch.zeros((S, 3), dtype=torch.float32),
+        torch.zeros(S, dtype=torch.bool), half, parent_half, margin, reach)
 
 
 class CellQueue(NamedTuple):
@@ -188,15 +195,18 @@ class CellQueue(NamedTuple):
 
 def build_cell_queue(
     centers, elong, rmounts, reach_l, r_cell: float, starts, origin, *,
-    cell_size: float, dims, k: int, shared: bool, window: int, q_steps: int,
+    cell_size: float | torch.Tensor, dims, k: int, shared: bool, window: int,
+    q_steps: int,
     chunk_masks: bool = True,
 ) -> CellQueue:
     """Chunk queues and role bytes of ``centers [C, 3]``.
 
     ``elong [3]`` is the elongated box half-extent (parent half + reach),
     ``rmounts, reach_l, r_cell`` come from :func:`ball_mask_params`,
-    ``starts / origin / cell_size / dims`` from the CSR grid, ``q_steps`` is
-    the queue width (at least :func:`slab_queue_host_max` of the batch).
+    ``starts / origin / cell_size / dims`` from the CSR grid (``cell_size``
+    a float, or the float32 value as a 0-d tensor on the cells' device),
+    ``q_steps`` is the queue width (at least :func:`slab_queue_host_max` of
+    the batch).
 
     ``chunk_masks`` (default on): role bytes computed per CHUNK from its own
     covered cell range instead of inherited from the whole slab; ``False``
@@ -208,7 +218,10 @@ def build_cell_queue(
     nx, ny, nz = (int(d) for d in dims)
     CH = int(q_steps)
     i64 = torch.int64
-    cs = f32_scalar(cell_size, dev)
+    # a 0-d tensor made once a solve: from a float it is uploaded here, a
+    # blocking copy on a card
+    cs = (cell_size if isinstance(cell_size, torch.Tensor)
+          else f32_scalar(cell_size, dev))
     w = int(window)
     starts_i = starts.to(i64)
     base = torch.floor((centers - origin) / cs).to(i64)
@@ -847,7 +860,8 @@ def make_csr_cell_eval(
         return kernel_fn(*level, consts, k, window, params)
 
     def eval_fn(centers, parent_valid, legtab, elong, rmounts, reach_l,
-                r_cell, xs, ys, zs, starts, origin, *, cell_size: float,
+                r_cell, xs, ys, zs, starts, origin, *,
+                cell_size: float | torch.Tensor,
                 dims, q_steps: int | None = None):
         C = centers.shape[0]
         if cells is not None and C != cells:
@@ -858,8 +872,8 @@ def make_csr_cell_eval(
         if steps is None:
             steps = slab_queue_host_max(
                 centers.cpu().numpy(), elong.cpu().numpy(),
-                starts.cpu().numpy(), origin.cpu().numpy(), cell_size, dims,
-                window)
+                starts.cpu().numpy(), origin.cpu().numpy(), float(cell_size),
+                dims, window)
         queue = build_cell_queue(
             centers, elong, rmounts, reach_l, r_cell, starts, origin,
             cell_size=cell_size, dims=dims, k=k, shared=shared,

@@ -9,7 +9,8 @@ registers: read 12 B/point, write 1 B (reachability) or 13 B (distance).
 Design: a **factory specialized to one concrete leg** — every workspace
 table entry (models/workspace.py) becomes a float32 constant of a parameter
 block that the kernel receives by value, so one compiled binary serves every
-leg.  The constants are computed here with strict numpy-float32 expressions.
+leg.  The constants are computed here with strict numpy-float32 expressions
+(their trig with ops/trig32.py, the JAX package's float32 values).
 
 Beside each kernel stands its **plain PyTorch version**
 (:func:`reachability_kernel_plain`, :func:`distance_kernel_plain`): the
@@ -24,9 +25,13 @@ of cells over the batch's footholds in one launch, on the same body, beside
 its plain version :func:`distance_cells_plain` (the eager loop over foothold
 chunks and legs that wrapped K2's point kernel before).
 
+The reach probe's io-only floor (:func:`io_only_kernel`, K1's input and
+output with no geometry) lives in the same source; it has no path of its
+own and launches only on the card.
+
 Each wrapper counts its launches in a plain integer attribute
 (``reachability_kernel.launches``, ``distance_kernel.launches``,
-``distance_cells_kernel.launches``).
+``distance_cells_kernel.launches``, ``io_only_kernel.launches``).
 """
 
 from __future__ import annotations
@@ -40,7 +45,7 @@ import torch
 
 from legmov_tpu_torch.models.leg import LegDimensions
 from legmov_tpu_torch.models.workspace import LegWorkspace, build_workspace
-from legmov_tpu_torch.ops import _build
+from legmov_tpu_torch.ops import _build, trig32
 
 _f32 = np.float32
 _PI = _f32(math.pi)
@@ -133,13 +138,8 @@ def _att_table(ws):
 
 
 def _frame_consts(ws):
-    pitch = _f32(ws.coxa_pitch)
-    return (
-        float(ws.body),
-        float(_f32(np.cos(_f32(-pitch)))),
-        float(_f32(np.sin(_f32(-pitch)))),
-        float(ws.coxa_length),
-    )
+    (sp,), (cp,) = trig32.host_sincos([-_f32(ws.coxa_pitch)])
+    return float(ws.body), cp, sp, float(ws.coxa_length)
 
 
 def _region_consts(ws):
@@ -212,6 +212,7 @@ def dist_consts(leg_or_ws) -> DistConsts:
     half_pi = float(_PI) / 2.0
     mid_coxa = (max_a + min_a) / 2.0
     pitch = _f32(ws.coxa_pitch)
+    inv = trig32.host_sincos([pitch])
     margin = _f32(0.001)
 
     if abs(max_a + half_pi) >= float(_PI) or abs(min_a - half_pi) >= float(_PI):
@@ -223,7 +224,8 @@ def dist_consts(leg_or_ws) -> DistConsts:
 
     def _dir(theta):
         t = _f32(theta)
-        return Direction(float(np.cos(t)), float(np.sin(t)), bool(t < 0))
+        (s,), (c,) = trig32.host_sincos([t])
+        return Direction(c, s, bool(t < 0))
 
     corners = []
     for j in range(ws.corner_xy.shape[0]):
@@ -239,8 +241,8 @@ def dist_consts(leg_or_ws) -> DistConsts:
     body, cp, sp, coxa_length = _frame_consts(ws)
     return DistConsts(
         body=body, cp=cp, sp=sp, coxa_length=coxa_length,
-        cp_inv=float(_f32(np.cos(_f32(pitch)))),
-        sp_inv=float(_f32(np.sin(_f32(pitch)))),
+        cp_inv=inv[1][0],
+        sp_inv=inv[0][0],
         cmax=(float(ws.coxa_max_dir[0]), float(ws.coxa_max_dir[1])),
         cmin=(float(ws.coxa_min_dir[0]), float(ws.coxa_min_dir[1])),
         mid=mid, sat=sat,
@@ -332,9 +334,9 @@ class CellLegs:
                 keys[key] = len(self.consts)
                 self.consts.append(dist_consts(leg))
             self.pidx.append(keys[key])
-            az = float(leg.body_angle)
-            self.ca.append(float(_f32(np.cos(_f32(-az)))))
-            self.sa.append(float(_f32(np.sin(_f32(-az)))))
+            (sa,), (ca,) = trig32.host_sincos([-float(leg.body_angle)])
+            self.ca.append(ca)
+            self.sa.append(sa)
         self.params = [dist_params(c) for c in self.consts]
         self.leg_flops = [dist_flops_per_point(self.consts[p])
                           for p in self.pidx]
@@ -420,7 +422,7 @@ def reachability_kernel_plain(x, y, z, consts: ReachConsts) -> torch.Tensor:
     if c.lt_possible:
         lt = (fy * c.cmin[0] - fx * c.cmin[1]) < 0
         coxa_invalid = lt if coxa_invalid is None else coxa_invalid | lt
-    rho = torch.sqrt(x * x + y * y)
+    rho = trig32.sqrt(x * x + y * y)
     xp = torch.where(flip, -rho, rho) - c.coxa_length
     yp = z
     upper, ext = _region_bits(xp, yp, c)
@@ -598,7 +600,7 @@ def distance_kernel_plain(x, y, z, consts: DistConsts):
     components in, ``(ok [N] bool, dx, dy, dz [N] float32)`` out."""
     c = consts
     x, y, z = _coxa_frame(x, y, z, c)
-    rho = torch.sqrt(x * x + y * y)
+    rho = trig32.sqrt(x * x + y * y)
     on_axis = rho == 0
     inv = torch.where(on_axis, 1.0, rho)
     cos_a = torch.where(on_axis, 1.0, x / inv)
@@ -849,6 +851,8 @@ def signatures() -> dict:
         # x, y, z, in_stride, out, n, params, stream
         "legmov_reachability": [vp, vp, vp, ll, vp, ll,
                                 ctypes.POINTER(_ReachParams), vp],
+        # x, y, z, out, n, stream
+        "legmov_io_only": [vp, vp, vp, vp, ll, vp],
         # x, y, z, in_stride, ok, dx, dy, dz, out_stride, n, params, stream
         "legmov_distance": [vp, vp, vp, ll, vp, vp, vp, vp, ll, ll,
                             ctypes.POINTER(_DistParams), vp],
@@ -945,6 +949,44 @@ def reachability_kernel(x, y, z, consts: ReachConsts,
 
 
 reachability_kernel.launches = 0
+
+
+def io_only_plain(x, y, z) -> torch.Tensor:
+    """Plain version of the io-only kernel: ``(x + y) + z > 0`` in float32
+    (NaN gives False)."""
+    return (x + y) + z > 0
+
+
+def io_only_kernel(x, y, z) -> torch.Tensor:
+    """The reach probe's io-only floor (``csrc/leg_kernels.cu``
+    ``legmov_io_only_kernel``): K1's input and output, three contiguous
+    ``[N]`` float32 arrays in and ``[N]`` bool out, ``(x + y) + z > 0`` a
+    point, so that its time is the memory floor of K1's access pattern.
+
+    A timing kernel with no path of its own: it launches on CUDA tensors and
+    refuses any other (its plain version is :func:`io_only_plain`)."""
+    n, stride = _check_components(x, y, z)
+    if x.device.type != "cuda":
+        raise ValueError(
+            f"the io-only kernel runs on the card, got {x.device} tensors "
+            "(io_only_plain is its plain version)")
+    if stride != 1 or not (x.is_contiguous() and y.is_contiguous()
+                           and z.is_contiguous()):
+        raise ValueError("the io-only kernel takes contiguous SoA arrays")
+    out = torch.empty(n, dtype=torch.bool, device=x.device)
+    if n == 0:
+        return out
+    lib = _library()
+    with torch.cuda.device(x.device):
+        err = lib.legmov_io_only(x.data_ptr(), y.data_ptr(), z.data_ptr(),
+                                 out.data_ptr(), n, _stream())
+    if err != 0:
+        raise RuntimeError(f"legmov_io_only launch failed: CUDA error {err}")
+    io_only_kernel.launches += 1
+    return out
+
+
+io_only_kernel.launches = 0
 
 
 def distance_kernel(x, y, z, consts: DistConsts,

@@ -36,6 +36,7 @@ raise.  Each wrapper counts its launches in a plain integer attribute
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -46,6 +47,7 @@ from legmov_tpu_torch.models.robot import leg_count, leg_of
 from legmov_tpu_torch.models.workspace import build_workspace
 from legmov_tpu_torch.ops import _build
 from legmov_tpu_torch.ops import quaternion as quat
+from legmov_tpu_torch.ops import trig32
 
 _f32 = np.float32
 _LANES = 128
@@ -142,6 +144,40 @@ def leg_block_from_workspace(oriented: LegDimensions, ws) -> np.ndarray:
     return np.concatenate(parts).astype(_f32)
 
 
+def _robot_key(robot: LegDimensions) -> tuple:
+    """``robot``'s fields as a hashable key (float32 values)."""
+    return tuple(tuple(np.asarray(f, _f32).reshape(-1).tolist())
+                 for f in robot)
+
+
+@functools.lru_cache(maxsize=16)
+def _robot_tables(key: tuple, dev: torch.device):
+    """What :func:`oriented_tables` takes from the robot alone, built once a
+    robot and device on the host and moved to ``dev`` once: the blocks of
+    the unoriented legs ``[L, LEG_BLOCK]``, the rotations into the legs'
+    frames and back (``[L, 4]`` each, :func:`quaternion.frame_quats`), and
+    the per-leg fields the orientation shifts or reads ``[6, 1, L]``."""
+    robot = LegDimensions(*(np.asarray(f, _f32) for f in key))
+    L = leg_count(robot)
+    for l in range(L):
+        if not leg_reach(leg_of(robot, l)) < FAR / 1e3:
+            raise ValueError(
+                f"leg {l} reaches {leg_reach(leg_of(robot, l))} mm from the "
+                f"body: the kernels skip candidates {FAR} mm away, which "
+                f"needs every leg within {FAR / 1e3} mm")
+    static = np.stack([
+        leg_block_from_workspace(leg_of(robot, l),
+                                 build_workspace(leg_of(robot, l)))
+        for l in range(L)
+    ])
+    qz, qz_inv = quat.frame_quats(robot.body_angle)
+    legs = np.stack([np.asarray(getattr(robot, name), _f32) for name in (
+        "tibia_absolute_pos", "tibia_absolute_neg", "min_angle_femur",
+        "max_angle_femur", "femur_length", "tibia_length")])[:, None, :]
+    return (torch.as_tensor(static, device=dev), qz.to(dev), qz_inv.to(dev),
+            torch.as_tensor(legs, device=dev))
+
+
 def oriented_tables(body_pos: torch.Tensor, quats: torch.Tensor,
                     robot: LegDimensions) -> torch.Tensor:
     """``[P, table_width(L)]`` packed per-pose scalars, on the poses' device.
@@ -152,43 +188,28 @@ def oriented_tables(body_pos: torch.Tensor, quats: torch.Tensor,
     the leg's frame (one_leg_global.cu:48-60), rebuild what depends on them
     (the two fromabove circles, the fal/falo bits, the middle and
     saturation directions) in the arithmetic order of
-    models/workspace.py ``build_workspace`` (float32, trig rounded once from
-    float64), and fold each circle into the expanded linear form
+    models/workspace.py ``build_workspace`` (float32, the JAX package's
+    trig from ops/trig32.py), and fold each circle into the expanded linear form
     ``t = q - 2 cx xp - 2 cy yp`` vs thresholds with the centre norm
     pre-subtracted.  The four circles that no orientation moves (inner,
-    outer, winglet+-) come from the host workspace of each leg.  Row for row
-    equal to :func:`leg_block_from_workspace` of the oriented leg.
+    outer, winglet+-) come from the host workspace of each leg, built once
+    a robot (:func:`_robot_tables`).  Row for row equal to
+    :func:`leg_block_from_workspace` of the oriented leg.
     """
     dev = quats.device
     P = quats.shape[0]
     L = leg_count(robot)
-    for l in range(L):
-        if not leg_reach(leg_of(robot, l)) < FAR / 1e3:
-            raise ValueError(
-                f"leg {l} reaches {leg_reach(leg_of(robot, l))} mm from the "
-                f"body: the kernels skip candidates {FAR} mm away, which "
-                f"needs every leg within {FAR / 1e3} mm")
     quats = quats.to(torch.float32)
     body_pos = body_pos.to(torch.float32)
+    static_t, qz, qz_inv, legs = _robot_tables(_robot_key(robot), dev)
 
-    def leg_t(name):
-        return torch.as_tensor(np.asarray(getattr(robot, name), _f32),
-                               device=dev)[None, :]  # [1, L]
-
-    static = np.stack([
-        leg_block_from_workspace(leg_of(robot, l),
-                                 build_workspace(leg_of(robot, l)))
-        for l in range(L)
-    ])  # [L, LEG_BLOCK]
-    static_t = torch.as_tensor(static, device=dev)
-
-    pitch = quat.pitch_in_frame(quats[:, None, :], leg_t("body_angle")[0])
-    abs_pos = leg_t("tibia_absolute_pos") - pitch  # [P, L]
-    abs_neg = leg_t("tibia_absolute_neg") - pitch
-    min_fem = leg_t("min_angle_femur").expand(P, L)
-    max_fem = leg_t("max_angle_femur").expand(P, L)
-    fem = leg_t("femur_length").expand(P, L)
-    tib = leg_t("tibia_length")
+    pitch = quat.pitch_in_frames(quats[:, None, :], qz, qz_inv)
+    abs_pos = legs[0] - pitch  # [P, L]
+    abs_neg = legs[1] - pitch
+    min_fem = legs[2].expand(P, L)
+    max_fem = legs[3].expand(P, L)
+    fem = legs[4].expand(P, L)
+    tib = legs[5]
 
     fal_up = max_fem < abs_pos
     fal_low = ~(min_fem < abs_neg)
@@ -199,10 +220,11 @@ def oriented_tables(body_pos: torch.Tensor, quats: torch.Tensor,
     sat_up = torch.where(fal_up, max_fem, abs_pos)
     sat_low = torch.where(fal_low, min_fem, abs_neg)
 
-    fan = _linear_form(tib * quat.cos32(abs_neg), tib * quat.sin32(abs_neg),
-                       fem)
-    fap = _linear_form(tib * quat.cos32(abs_pos), tib * quat.sin32(abs_pos),
-                       fem)
+    # one elementwise call for every angle of the block
+    sin, cos = trig32.sincos(torch.stack([abs_neg, abs_pos, middle, sat_low,
+                                          sat_up]))
+    fan = _linear_form(tib * cos[0], tib * sin[0], fem)
+    fap = _linear_form(tib * cos[1], tib * sin[1], fem)
 
     blocks = static_t[None, :, :].repeat(P, 1, 1)  # [P, L, LEG_BLOCK]
     for base, neg_v, pos_v in zip((_AX, _AY, _R2K, _HI2K, _LO2K), fan, fap):
@@ -210,13 +232,13 @@ def oriented_tables(body_pos: torch.Tensor, quats: torch.Tensor,
         blocks[:, :, base + _FAP] = pos_v
     for i, bit in enumerate((fal_low, fal_up, falo_low, falo_up)):
         blocks[:, :, _FAL + i] = bit.to(torch.float32)
-    blocks[:, :, _MID_DIR] = quat.cos32(middle)
-    blocks[:, :, _MID_DIR + 1] = quat.sin32(middle)
+    blocks[:, :, _MID_DIR] = cos[2]
+    blocks[:, :, _MID_DIR + 1] = sin[2]
     blocks[:, :, _MID_NEG] = (middle < 0).to(torch.float32)
-    blocks[:, :, _SAT_DIR] = quat.cos32(sat_low)
-    blocks[:, :, _SAT_DIR + 1] = quat.sin32(sat_low)
-    blocks[:, :, _SAT_DIR + 2] = quat.cos32(sat_up)
-    blocks[:, :, _SAT_DIR + 3] = quat.sin32(sat_up)
+    blocks[:, :, _SAT_DIR] = cos[3]
+    blocks[:, :, _SAT_DIR + 1] = sin[3]
+    blocks[:, :, _SAT_DIR + 2] = cos[4]
+    blocks[:, :, _SAT_DIR + 3] = sin[4]
     blocks[:, :, _SAT_NEG] = (sat_low < 0).to(torch.float32)
     blocks[:, :, _SAT_NEG + 1] = (sat_up < 0).to(torch.float32)
 
@@ -246,15 +268,15 @@ def leg_constants(robot: LegDimensions) -> list[dict]:
     for i in range(leg_count(robot)):
         leg = leg_of(robot, i)
         ws = build_workspace(leg)
-        ba = float(leg.body_angle)
-        pitch = float(leg.coxa_pitch)
+        (sa, sp), (ca, cp) = trig32.host_sincos(
+            [-float(leg.body_angle), -float(leg.coxa_pitch)])
         out.append(
             dict(
-                ca=float(_f32(np.cos(_f32(-ba)))),
-                sa=float(_f32(np.sin(_f32(-ba)))),
+                ca=ca,
+                sa=sa,
                 body=float(leg.body),
-                cp=float(_f32(np.cos(_f32(-pitch)))),
-                sp=float(_f32(np.sin(_f32(-pitch)))),
+                cp=cp,
+                sp=sp,
                 coxa_len=float(leg.coxa_length),
                 cmax=(float(ws.coxa_max_dir[0]), float(ws.coxa_max_dir[1])),
                 cmin=(float(ws.coxa_min_dir[0]), float(ws.coxa_min_dir[1])),
@@ -328,7 +350,7 @@ def _one_leg_plain(s, l, c, vx, vy, vz):
     if c["lt_possible"]:
         lt = (fy * c["cmin"][0] - fx * c["cmin"][1]) < 0
         coxa_invalid = lt if coxa_invalid is None else coxa_invalid | lt
-    rho = torch.sqrt(x1 * x1 + y1 * y1)
+    rho = trig32.sqrt(x1 * x1 + y1 * y1)
     xp = torch.where(flip, -rho, rho) - c["coxa_len"]
     yp = z1
 

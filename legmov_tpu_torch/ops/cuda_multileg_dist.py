@@ -52,7 +52,7 @@ import torch
 from legmov_tpu_torch.models.leg import LegDimensions
 from legmov_tpu_torch.models.robot import leg_count, leg_of
 from legmov_tpu_torch.models.workspace import build_workspace
-from legmov_tpu_torch.ops import _build
+from legmov_tpu_torch.ops import _build, trig32
 from legmov_tpu_torch.ops.orientation import oriented_workspace_items
 
 _f32 = np.float32
@@ -232,27 +232,30 @@ def dist_leg_constants(robot: LegDimensions) -> list[dict]:
                 or abs(min_a - half_pi) >= float(_PI)):
             raise ValueError("coxa limits beyond +-pi/2 unsupported")
 
-        def _dir(theta):
-            t = _f32(theta)
-            return (float(np.cos(t)), float(np.sin(t)), bool(t < 0))
+        angles = [-ba, -pitch, pitch, max_a + half_pi, min_a - half_pi,
+                  max_a, min_a, (max_a + min_a) / 2.0]
+        sn, cs = trig32.host_sincos(angles)
+
+        def _dir(i):
+            return (cs[i], sn[i], bool(_f32(angles[i]) < 0))
 
         legs_const.append(
             dict(
-                ca=float(_f32(np.cos(_f32(-ba)))),
-                sa=float(_f32(np.sin(_f32(-ba)))),
+                ca=cs[0],
+                sa=sn[0],
                 body=float(leg.body),
-                cp=float(_f32(np.cos(_f32(-pitch)))),
-                sp=float(_f32(np.sin(_f32(-pitch)))),
-                cpi=float(_f32(np.cos(_f32(pitch)))),
-                spi=float(_f32(np.sin(_f32(pitch)))),
+                cp=cs[1],
+                sp=sn[1],
+                cpi=cs[2],
+                spi=sn[2],
                 coxa_len=float(ws.coxa_length),
                 cmax=(float(ws.coxa_max_dir[0]), float(ws.coxa_max_dir[1])),
                 cmin=(float(ws.coxa_min_dir[0]), float(ws.coxa_min_dir[1])),
-                d_mega_hi=_dir(max_a + half_pi),
-                d_mega_lo=_dir(min_a - half_pi),
-                d_max=_dir(max_a),
-                d_min=_dir(min_a),
-                d_mid=_dir((max_a + min_a) / 2.0),
+                d_mega_hi=_dir(3),
+                d_mega_lo=_dir(4),
+                d_max=_dir(5),
+                d_min=_dir(6),
+                d_mid=_dir(7),
             )
         )
     return legs_const
@@ -425,7 +428,7 @@ def item_leg_plain(s, l: int, c: dict, pre, vx, vy, vz):
     x = px * c["cp"] - vz * c["sp"]
     z = px * c["sp"] + vz * c["cp"]
     y = y0
-    rho = torch.sqrt(x * x + y * y)
+    rho = trig32.sqrt(x * x + y * y)
     on_axis = rho == 0
     inv = torch.where(on_axis, 1.0, rho)
     cos_a = torch.where(on_axis, 1.0, x / inv)

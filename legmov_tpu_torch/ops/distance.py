@@ -35,7 +35,7 @@ from legmov_tpu_torch.models.workspace import (
     build_workspace,
     workspace_tensors,
 )
-from legmov_tpu_torch.ops import frames
+from legmov_tpu_torch.ops import frames, trig32
 from legmov_tpu_torch.ops.plane import plane_clamp
 
 _PI = float(np.float32(3.14159265358979323846))
@@ -117,7 +117,7 @@ def distance_xyz(x, y, z, ws: LegWorkspace):
 
     # direction of the heading from coordinates: cos = x/rho, sin = y/rho
     # (identity direction for the degenerate on-axis point, where atan2=0)
-    rho = torch.sqrt(x * x + y * y)
+    rho = trig32.sqrt(x * x + y * y)
     on_axis = rho == 0
     inv = torch.where(on_axis, 1.0, rho)
     cos_a = torch.where(on_axis, 1.0, x / inv)

@@ -29,6 +29,7 @@ from legmov_tpu_torch.models.workspace import (
     select_validate_tables,
     workspace_tensors,
 )
+from legmov_tpu_torch.ops import trig32
 
 _MARGIN = float(np.float32(CIRCLE_MARGIN))
 _BIG = float(np.float32(3.4e38))
@@ -131,7 +132,7 @@ def plane_clamp(x, y, ws: LegWorkspace):
     valid = (inside == attract4) | near  # [..., 4]
     overall_valid = torch.all(valid, dim=-1)
 
-    mag = torch.sqrt(d2)
+    mag = trig32.sqrt(d2)
     deg = mag < _MARGIN  # degenerate point-at-center guard (one_leg.cu:54-58)
     scale = r4 / torch.where(deg, 1.0, mag)
     clamp_x = cx4 + torch.where(deg, 1.0, dx) * scale  # [..., 4]

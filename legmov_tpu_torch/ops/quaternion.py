@@ -12,9 +12,9 @@ All functions broadcast over leading axes; quaternions are ``[..., 4]``
 float32 tensors, vectors ``[..., 3]``.  Results live on the device of the
 inputs (numpy or Python inputs give CPU tensors).  Products and sums are
 float32 in the written order; every transcendental (``sin``, ``cos``,
-``arcsin``, ``arctan2``) is evaluated in float64 and rounded once, so the
-values do not depend on which float32 approximation a device ships (the
-rule of models/workspace.py ``_cos``/``_sin``).
+``arcsin``, ``arctan2``) is :mod:`legmov_tpu_torch.ops.trig32`'s, the JAX
+package's float32 values as elementwise tensor arithmetic, so the results
+equal the JAX package's bit for bit and do not depend on the device.
 """
 
 from __future__ import annotations
@@ -23,6 +23,8 @@ import math
 
 import numpy as np
 import torch
+
+from legmov_tpu_torch.ops import trig32
 
 IDENTITY = np.array([1.0, 0.0, 0.0, 0.0], np.float32)
 
@@ -36,24 +38,13 @@ def _f32(a, like=None) -> torch.Tensor:
     return torch.as_tensor(np.asarray(a, np.float32), device=dev)
 
 
-def cos32(a: torch.Tensor) -> torch.Tensor:
-    """float32 cosine rounded once from the float64 value."""
-    return torch.cos(a.to(torch.float64)).to(torch.float32)
-
-
-def sin32(a: torch.Tensor) -> torch.Tensor:
-    """float32 sine rounded once from the float64 value."""
-    return torch.sin(a.to(torch.float64)).to(torch.float32)
-
-
 def from_axis_angle(axis, angle) -> torch.Tensor:
     """Unit quaternion rotating by ``angle`` about ``axis`` (normalized)."""
     angle = _f32(angle, like=axis)
     axis = _f32(axis, like=angle)
     half = angle / 2.0
-    s = sin32(half)
-    c = cos32(half)
-    n = torch.sqrt(torch.sum(axis * axis, dim=-1, keepdim=True))
+    s, c = trig32.sincos(half)
+    n = trig32.sqrt(torch.sum(axis * axis, dim=-1, keepdim=True))
     u = axis / n
     ones = torch.ones_like(u[..., 0])
     w = (c * ones)[..., None]
@@ -117,16 +108,22 @@ def from_rpy(roll, pitch, yaw) -> torch.Tensor:
     roll = _f32(roll)
     pitch = _f32(pitch, like=roll)
     yaw = _f32(yaw, like=roll)
-    zr, zp, zy = (torch.zeros_like(a) for a in (roll, pitch, yaw))
-    qx = torch.stack([cos32(roll / 2), sin32(roll / 2), zr, zr], dim=-1)
-    qy = torch.stack([cos32(pitch / 2), zp, sin32(pitch / 2), zp], dim=-1)
-    qz = torch.stack([cos32(yaw / 2), zy, zy, sin32(yaw / 2)], dim=-1)
+    roll, pitch, yaw = torch.broadcast_tensors(roll, pitch, yaw)
+    s, c = trig32.sincos(torch.stack([roll, pitch, yaw]) / 2)
+    z = torch.zeros_like(roll)
+    qx = torch.stack([c[0], s[0], z, z], dim=-1)
+    qy = torch.stack([c[1], z, s[1], z], dim=-1)
+    qz = torch.stack([c[2], z, z, s[2]], dim=-1)
     return multiply(qz, multiply(qy, qx))
 
 
-def _arctan2_32(y, x):
-    return torch.atan2(y.to(torch.float64), x.to(torch.float64)).to(
-        torch.float32)
+def _pitch(sinp):
+    """The pitch of :func:`to_rpy` from its ``sinp``."""
+    return torch.where(
+        torch.abs(sinp) >= 1,
+        torch.sign(sinp) * _HALF_PI,
+        trig32.asin(torch.clamp(sinp, -1.0, 1.0)),
+    )
 
 
 def to_rpy(q) -> torch.Tensor:
@@ -134,18 +131,33 @@ def to_rpy(q) -> torch.Tensor:
     w, x, y, z = (q[..., i] for i in range(4))
     sinr = 2.0 * (w * x + y * z)
     cosr = 1.0 - 2.0 * (x * x + y * y)
-    roll = _arctan2_32(sinr, cosr)
-    sinp = 2.0 * (w * y - z * x)
-    pitch = torch.where(
-        torch.abs(sinp) >= 1,
-        torch.sign(sinp) * _HALF_PI,
-        torch.asin(torch.clamp(sinp, -1.0, 1.0).to(torch.float64)).to(
-            torch.float32),
-    )
+    roll = trig32.atan2(sinr, cosr)
+    pitch = _pitch(2.0 * (w * y - z * x))
     siny = 2.0 * (w * z + x * y)
     cosy = 1.0 - 2.0 * (y * y + z * z)
-    yaw = _arctan2_32(siny, cosy)
+    yaw = trig32.atan2(siny, cosy)
     return torch.stack([roll, pitch, yaw], dim=-1)
+
+
+def frame_quats(frame_yaw):
+    """``(qz, qz^-1)``, the rotations into the frames yawed by
+    ``frame_yaw`` (``[..., 4]`` each, on ``frame_yaw``'s device; numpy or
+    Python input gives CPU tensors).  They depend only on the leg, so code
+    that builds tables makes them once a robot and passes them to
+    :func:`pitch_in_frames`."""
+    frame_yaw = _f32(frame_yaw)
+    axis = torch.tensor([0.0, 0.0, 1.0], dtype=torch.float32,
+                        device=frame_yaw.device)
+    qz = from_axis_angle(axis, -frame_yaw)
+    return qz, invert(qz)
+
+
+def pitch_in_frames(q, qz, qz_inv) -> torch.Tensor:
+    """:func:`pitch_in_frame` with the frames of :func:`frame_quats`: the
+    pitch of ``qz * q * qz^-1``, computed as :func:`to_rpy` does."""
+    q_leg = multiply(multiply(qz, q), qz_inv)
+    w, x, y, z = (q_leg[..., i] for i in range(4))
+    return _pitch(2.0 * (w * y - z * x))
 
 
 def pitch_in_frame(q, frame_yaw) -> torch.Tensor:
@@ -156,8 +168,4 @@ def pitch_in_frame(q, frame_yaw) -> torch.Tensor:
     orientation into the leg-azimuth frame and extract its pitch.  At the
     identity quaternion the result is exactly 0 for every ``frame_yaw``.
     """
-    frame_yaw = _f32(frame_yaw, like=q)
-    axis = torch.tensor([0.0, 0.0, 1.0], dtype=torch.float32, device=q.device)
-    qz = from_axis_angle(axis, -frame_yaw)
-    q_leg = multiply(multiply(qz, q), invert(qz))
-    return to_rpy(q_leg)[..., 1]
+    return pitch_in_frames(q, *frame_quats(_f32(frame_yaw, like=q)))

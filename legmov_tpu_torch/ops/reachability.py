@@ -19,7 +19,7 @@ from legmov_tpu_torch.models.workspace import (
     build_workspace,
     workspace_tensors,
 )
-from legmov_tpu_torch.ops import frames
+from legmov_tpu_torch.ops import frames, trig32
 from legmov_tpu_torch.ops.plane import plane_validate
 
 
@@ -51,7 +51,7 @@ def reachability_xyz(x, y, z, ws: LegWorkspace) -> torch.Tensor:
     coxa_invalid = gt_max | lt_min
 
     # "rotate into the coxa vertical plane" = radial coordinate +-rho
-    rho = torch.sqrt(x * x + y * y)
+    rho = trig32.sqrt(x * x + y * y)
     xr = torch.where(flip, -rho, rho)
     reach = plane_validate(xr - ws.coxa_length, z, ws)
     return torch.logical_not(coxa_invalid) & reach

@@ -135,6 +135,42 @@ def test_level_tables_are_item_tables_without_a_cell():
                                         MARGIN, REACH, blocks=blocks), lt)
 
 
+def test_level_constants_come_from_the_host_copy():
+    """F1: ``level_tables`` takes the host copy of the orientations (numpy
+    or a CPU tensor, one table either way) and refuses a device tensor;
+    ``build_cell_queue`` takes the cell size as a 0-d tensor made once a solve and
+    gives the queue it gives for the float; ``hier_solver._upload`` keeps
+    each array's dtype and shape, 0-d included."""
+    from legmov_tpu_torch.models import hier_solver as ths
+
+    fh, quats, centers, _ = _scene(seed=5)
+    robot = trobot.get_moonbot_robot()
+    lt = cce.level_tables(quats, HALF, PARENT_HALF, robot, MARGIN, REACH)
+    assert lt.device.type == "cpu" and lt.dtype == torch.float32
+    assert torch.equal(cce.level_tables(_t(quats), HALF, PARENT_HALF, robot,
+                                        MARGIN, REACH), lt)
+    with pytest.raises(ValueError, match="host copy"):
+        cce.level_tables(torch.empty((S, 4), device="meta"), HALF,
+                         PARENT_HALF, robot, MARGIN, REACH)
+    lv = _Level(robot, fh, quats)
+    c = lv.csr
+    cs, flag, one = ths._upload(torch.device("cpu"),
+                                np.asarray(c.cell_size, np.float32),
+                                np.zeros(4, bool), np.ones((2, 3), np.int32))
+    assert cs.shape == () and cs.dtype == torch.float32
+    assert flag.dtype == torch.bool and one.shape == (2, 3)
+    steps = cce.slab_queue_host_max(centers, ELONG, c.starts.numpy(),
+                                    c.origin.numpy(), c.cell_size, c.dims,
+                                    WINDOW)
+    kw = dict(dims=c.dims, k=3, shared=True, window=WINDOW, q_steps=steps)
+    args = (_t(centers), _t(ELONG), lv.rm, lv.rl, lv.rc, c.starts, c.origin)
+    want = cce.build_cell_queue(*args, cell_size=c.cell_size, **kw)
+    got = cce.build_cell_queue(*args, cell_size=cs, **kw)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert int(want.tot.max()) > 0
+
+
 @pytest.mark.parametrize("shared,k,masks", [(True, 3, True), (False, 4, True),
                                             (True, 4, False)])
 def test_queue_against_brute_force(shared, k, masks):

@@ -43,6 +43,7 @@ def test_import_pulls_in_neither_jax_nor_legmov_tpu():
         "import legmov_tpu_torch.ops.cuda_multileg_dist\n"
         "import legmov_tpu_torch.ops.csr_cell_eval\n"
         "import legmov_tpu_torch.models.hier_solver\n"
+        "import legmov_tpu_torch.reach_probe, legmov_tpu_torch.ops.trig32\n"
         "bad = [m for m in set(sys.modules) - before if m == 'jax' or m.startswith('jax.')"
         " or m == 'jaxlib' or m == 'legmov_tpu' or m.startswith('legmov_tpu.')"
         " or m == 'matplotlib']\n"
@@ -88,7 +89,8 @@ def test_same_layout_as_jax_package():
     for j, t in (("ops/pallas_kernels.py", "ops/cuda_kernels.py"),
                  ("ops/pallas_multileg.py", "ops/cuda_multileg.py"),
                  ("ops/pallas_multileg_dist.py", "ops/cuda_multileg_dist.py"),
-                 ("../tools/map_solve_bench.py", "map_bench.py")):
+                 ("../tools/map_solve_bench.py", "map_bench.py"),
+                 ("../tools/reach_kernel_probe.py", "reach_probe.py")):
         assert os.path.exists(os.path.join(REPO, "legmov_tpu", j)), j
         assert os.path.exists(os.path.join(PKG, t)), t
 

@@ -7,13 +7,10 @@ tensor gets); the CUDA kernel itself is held against the same plain version
 on the card by ``chip_smoke.py``.
 
 Tolerances.  Layout constants and leg constants: equal.  ``leg_blocks`` /
-``oriented_dist_tables`` against the port's own ``build_workspace`` of the
-oriented leg: bit-equal.  Against the JAX tables: the pose pitch goes through
-``arcsin`` and the circles through ``cos``/``sin`` of two different libraries,
-so entries differ in the last bits; bounds, absolute, as 8 ulp of the
-magnitude each entry is computed from (circle centres and corners: 8 ulp of
-femur + tibia; radii: equal; squared thresholds: equal; unit directions: 8 ulp
-of 0.5; flags and the header: equal).  Booleans out of the plain item kernel:
+``oriented_dist_tables``: bit-equal to the port's own ``build_workspace`` of
+the oriented leg and to the JAX tables (both sides take the JAX package's
+float32 trig: glibc's, through ops/trig32.py on the port's side).
+Booleans out of the plain item kernel:
 ``assert_array_equal``, fed the JAX tables through ``dist_tables_from_numpy``
 so that both sides evaluate the same bits.  Cell flags of
 ``make_cell_eval_rot`` against JAX ``_eval_cells``: ``assert_array_equal``.
@@ -147,21 +144,14 @@ def test_tables_equal_own_workspace_and_match_jax(name):
     # header and padding: exact
     np.testing.assert_array_equal(got[:, :16], want[:, :16])
     np.testing.assert_array_equal(got[:, 16 + n * 151:], 0.0)
-    # leg blocks against the JAX tables, within the stated bounds
-    arm = np.float32(t.femur_length[0]) + np.float32(t.tibia_length[0])
-    atol = np.zeros(151)
-    for base in (0, 16, 112, 122):  # circle centres, corners
-        atol[base:base + (16 if base < 112 else 10)] = 8 * np.spacing(arm)
-    atol[64:96] = 8 * np.spacing(arm * arm)  # hi2, lo2
-    atol[48:64] = 8 * np.spacing(arm * arm)  # r2
-    atol[142:144] = atol[145:149] = 8 * np.spacing(np.float32(0.5))
+    # leg blocks: the JAX tables, bit for bit (ROADMAP.md, fault F2)
     blocks_g = got[:, 16:16 + n * 151].reshape(P, n, 151)
     blocks_w = want[:, 16:16 + n * 151].reshape(P, n, 151)
-    diff = np.abs(blocks_g.astype(np.float64) - blocks_w)
-    worst = {int(c): float(diff[..., c].max())
-             for c in np.flatnonzero(diff.max(axis=(0, 1)) > 0)}
+    worst = {int(c): float(np.abs(blocks_g[..., c].astype(np.float64)
+                                  - blocks_w[..., c]).max())
+             for c in np.flatnonzero((blocks_g != blocks_w).any(axis=(0, 1)))}
     print(f"{name}: largest absolute difference per differing column: {worst}")
-    assert (diff <= atol).all(), worst
+    assert blocks_g.tobytes() == blocks_w.tobytes(), worst
     # identity orientation: no pitch shift, so the blocks are bit-equal
     ident = np.tile(np.asarray([[1.0, 0, 0, 0]], np.float32), (P, 1))
     np.testing.assert_array_equal(
@@ -487,8 +477,9 @@ def _circle_points(tab, consts, body, quats, thetas, steps):
 
 
 #: item bits that flip in the search below when each side uses its own
-#: tables (ROADMAP.md, fault F2): what the search found when it was made
-K5_FLIPS = {"quad_moonbot": 3, "hex_m2": 0}
+#: tables (ROADMAP.md, fault F2, closed: none since the tables are the JAX
+#: package's bit for bit)
+K5_FLIPS = {"quad_moonbot": 0, "hex_m2": 0}
 
 
 @pytest.mark.parametrize("name", list(ROBOTS))
@@ -534,4 +525,5 @@ def test_item_bits_on_the_oriented_circles_against_jax(name):
               f"{body[item[i]].tolist()}, quaternion "
               f"{quats[item[i]].tolist()})")
     print(f"{name}: {len(flips)} flips of {want.size} ok / crossed bits")
-    assert len(flips) <= K5_FLIPS[name]
+    assert len(flips) == K5_FLIPS[name] == 0
+    np.testing.assert_array_equal(port(tab_t), want)

@@ -1,9 +1,8 @@
 """PyTorch port: leg parameters, workspace tables and FK vs the JAX package.
 
-Tolerances: leg parameters and boolean table fields must be bit-equal.
-Float table fields may differ by at most 1 ulp (the port rounds its trig
-once from float64, XLA uses its own float32 trig); the message names the
-worst field, so any difference at all is visible when the bound is hit.
+Tolerances: leg parameters and every workspace table field must be
+bit-equal (the port takes the JAX package's float32 trig, glibc's, through
+ops/trig32.py); the message names the worst field in ulp.
 Forward kinematics: rtol 1e-6 (per-point float32 trig of two libraries).
 """
 
@@ -70,7 +69,9 @@ def test_build_workspace_matches_jax(name):
             u = float(_ulps(got[k], want[k]).max())
             if u > worst[1]:
                 worst = (k, u)
-    assert worst[1] <= 1.0, f"worst field {worst[0]}: {worst[1]} ulp"
+    assert worst[1] == 0.0, f"worst field {worst[0]}: {worst[1]} ulp"
+    for k in want:
+        assert got[k].tobytes() == want[k].tobytes(), k
 
 
 @pytest.mark.parametrize("name", list(LEGS))
