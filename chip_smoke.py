@@ -12,7 +12,13 @@ no CPU path.
 
 Phases: 1 build; 2 ``cli prepare`` -> ``cli evaluate`` for both shipped legs
 on the default 5 mm query grid; 3 the single-leg kernels against their plain
-versions; 4 their times; 5 ``cli map`` on the prepared directory (both CSR
+versions (grids, random points, views, and a mixed set whose every 32
+consecutive points span K1's four configurations, valid and invalid
+queries and both of K2's dual-finish winners), and K1's generic instance
+(parameter blocks with the first or every interval collapse cleared)
+against its plain version and the instance the legs take, bit for bit;
+4 their times (on the grids and the mixed sets, also queued back to back
+behind a sleep; K1's generic instance in turns); 5 ``cli map`` on the prepared directory (both CSR
 solvers, the orientation sweep, the plain versions); 6 the map solve at
 10.24 M footholds (hexapod, 32,768 poses, both CSR builds, one chunk held
 against the plain versions and the exhaustive path, the packed orientation
@@ -56,7 +62,10 @@ level's batches.
 phase 8's deep solves to a quarter of the box, for a first look at a new
 kernel; ``--against`` (an earlier ``cell_kernels.cu``, phase 10) and
 ``--against-multileg`` (an earlier ``multileg_kernels.cu``, phases 5 and 7)
-time another build's kernels in turns with this tree's on the same inputs.
+time another build's kernels in turns with this tree's on the same inputs;
+``--against-leg`` (an earlier ``leg_kernels.cu``, with nvcc flags if any)
+does so for K1 and K2 in phases 4, 11 and 12, and phase 3 holds that
+build's K1 and K2 outputs to this tree's bit for bit.
 Phase 10 also counts K5's bound over every batch of the two dense solves.
 
 Output, in order: the card's name and power limit, one line per phase, one
@@ -247,6 +256,140 @@ def plain_dist(kd, x, y, z):
 
 
 # ---------------------------------------------------------------------------
+# the single-leg kernels through their C launchers, of this build or of an
+# earlier leg_kernels.cu (--against-leg)
+# ---------------------------------------------------------------------------
+
+def bind_leg_library(lib):
+    """This build's argument types for the launchers a library built from a
+    ``leg_kernels.cu`` has."""
+    for name, argtypes in ck.signatures().items():
+        if hasattr(lib, name):
+            getattr(lib, name).restype = ctypes.c_int
+            getattr(lib, name).argtypes = argtypes
+    return lib
+
+
+def leg_builds(specs):
+    """The builds of ``--against-leg``: each a ``leg_kernels.cu``,
+    optionally followed by nvcc flags.  [(label, lib)]"""
+    if not specs:
+        return []
+    say("phase 1: the builds of --against-leg")
+    parts = [spec.split() for spec in specs]
+    return alternatives([p[0] for p in parts], bind_leg_library,
+                        [tuple(p[1:]) for p in parts])
+
+
+def _stride(x):
+    return x.stride(0) if x.numel() > 1 else 1
+
+
+def reach_call(lib, comps, params):
+    """One launch of ``lib``'s K1 on three ``[N]`` components; returns the
+    booleans."""
+    x, y, z = comps
+    n = x.numel()
+    out = torch.empty(n, dtype=torch.bool, device=DEV)
+    if n == 0:
+        return out
+    err = lib.legmov_reachability(
+        x.data_ptr(), y.data_ptr(), z.data_ptr(), _stride(x), out.data_ptr(),
+        n, ctypes.byref(params), ck._stream())
+    check(err == 0, f"legmov_reachability: CUDA error {err}")
+    return out
+
+
+def dist_call(lib, comps, params):
+    """One launch of ``lib``'s K2 point kernel on three ``[N]`` components;
+    returns ``(ok, vec [N, 3])``."""
+    x, y, z = comps
+    n = x.numel()
+    ok = torch.empty(n, dtype=torch.bool, device=DEV)
+    vec = torch.empty((3, n), dtype=torch.float32, device=DEV)
+    if n == 0:
+        return ok, vec.T
+    err = lib.legmov_distance(
+        x.data_ptr(), y.data_ptr(), z.data_ptr(), _stride(x), ok.data_ptr(),
+        vec[0].data_ptr(), vec[1].data_ptr(), vec[2].data_ptr(), 1, n,
+        ctypes.byref(params), ck._stream())
+    check(err == 0, f"legmov_distance: CUDA error {err}")
+    return ok, vec.T
+
+
+def leg_params(leg):
+    """K1's and K2's parameter blocks for ``leg``, each carrying its
+    constants (``.consts``)."""
+    rc, dc = ck.reach_consts(leg), ck.dist_consts(leg)
+    rp, dp = ck.reach_params(rc), ck.dist_params(dc)
+    rp.consts, dp.consts = rc, dc
+    return rp, dp
+
+
+def generic_params(rc, cleared):
+    """K1's parameter block for the constants ``rc`` with the interval
+    collapse of its first circle (``cleared`` "first") or of every circle
+    ("all") cleared: the launcher then takes the generic instance, whose
+    full interval test gives the collapsed test's bits where the collapse
+    is legal.  Carries its constants (``.consts``)."""
+    n = len(rc.collapse)
+    off = (False,) * (1 if cleared == "first" else n)
+    c = rc._replace(collapse=off + rc.collapse[len(off):])
+    p = ck.reach_params(c)
+    p.consts = c
+    return p
+
+
+def same_dist(a, b):
+    """Two K2 outputs ``(ok, vec)`` hold the same bits."""
+    return bool(torch.equal(a[0], b[0])) and all_bits_equal(a[1], b[1])
+
+
+def queued_ms(fn, reps=50, warmup=3):
+    """Milliseconds a launch of ``fn`` holds the card: ``reps`` launches
+    queued back to back between two CUDA events behind a sleep kernel that
+    outlasts the host's time to enqueue them all, so that the card runs
+    them without a gap whatever the wrapper's host time (events around one
+    launch on an idle stream, as :func:`time_cuda` takes them, also count
+    the wrapper's host time before the kernel starts).  The sleep is made
+    longer until it outlasts the enqueueing (four tries, then the reading
+    is marked host-bound)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    cycles = 1 << 24
+    for _ in range(4):
+        s, a, b = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        s.record()
+        torch.cuda._sleep(cycles)
+        a.record()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        b.record()
+        b.synchronize()
+        if s.elapsed_time(a) > host_ms:
+            return a.elapsed_time(b) / reps
+        cycles *= 4
+    say(f"  queued_ms: the host took {host_ms:.2f} ms to enqueue {reps} "
+        "launches, longer than the sleep: this reading is host-bound")
+    return a.elapsed_time(b) / reps
+
+
+def in_turns(other, this, rounds=2):
+    """``rounds`` x (other, this, this, other), each :func:`queued_ms`;
+    returns (other ms, this ms, other / this, the readings)."""
+    t = []
+    for _ in range(rounds):
+        t += [queued_ms(other), queued_ms(this), queued_ms(this),
+              queued_ms(other)]
+    o = statistics.median(t[0::4] + t[3::4])
+    h = statistics.median(t[1::4] + t[2::4])
+    return o, h, o / h, t
+
+
+# ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
 
@@ -290,9 +433,8 @@ def phase_device_and_build():
                 say("  ptxas:", line.split("function")[1].strip())
             if "registers" in line or "spill" in line.lower() and "0 bytes spill" not in line:
                 say("  ptxas:", line.strip())
-    # the instruction mix of the cell and multi-leg kernels, as the card
-    # runs them
-    for name in ("cell_kernels", "multileg_kernels"):
+    # the instruction mix of every kernel, as the card runs it
+    for name in ("leg_kernels", "cell_kernels", "multileg_kernels"):
         sass_mix(_build.library_path(name))
     # what the card holds of each cell kernel at once, as it is launched
     # (K6b's shared memory grows with the window; the solver's is 2048)
@@ -337,6 +479,9 @@ def phase_cli(tmp):
     t0 = time.perf_counter()
     cli.main(["prepare", "--dir", data, "--pix-size", "5"])
     t_prepare = time.perf_counter() - t0
+    grid = lio.load_points(os.path.join(data, "dist_input_t"))
+    comps = tuple(torch.from_numpy(np.ascontiguousarray(grid[:, i])).to(DEV)
+                  for i in range(3))
     results = {}
     for name in LEGS:
         buf = io.StringIO()
@@ -349,14 +494,14 @@ def phase_cli(tmp):
         sys.stdout.write(out)
         leg = LEGS[name]()
         report_clock(f"cli evaluate {name}", recs, {
-            "reachability": reach_bound(leg), "distance": dist_bound(leg)})
+            "reachability": reach_bound(leg),
+            "distance": dist_bound(leg, comps)})
         reach = lio.load_bools(os.path.join(data, "out_reachability.bin"))
         dist = lio.load_points(os.path.join(data, "out_dist_x"))
         results[name] = (out, reach, dist, wall)
     launches = {"reachability": ck.reachability_kernel.launches,
                 "distance": ck.distance_kernel.launches}
-
-    grid = lio.load_points(os.path.join(data, "dist_input_t"))
+    del comps
     n = grid.shape[0]
     check(n == 141 * 161 * 141, f"query grid has {n} points")
     for name, (out, reach, dist, wall) in results.items():
@@ -401,9 +546,13 @@ def phase_cli(tmp):
     return launches, grid, results
 
 
-def phase_compare(cli_grid, cli_results):
-    """Every kernel against its plain version, on the card."""
-    worst = {"reachability": 0.0, "distance": 0.0}
+def phase_compare(cli_grid, cli_results, others=()):
+    """Every kernel against its plain version, on the card; K1's generic
+    instance and the builds of ``others`` (``--against-leg``)
+    against this build's, bit for bit.  Returns K1's mismatching booleans
+    and K2's worst finite vector difference against the plain version."""
+    worst = {"reachability": 0, "distance": 0.0}
+    lib = ck._library()
     pts = random_points(1_000_000, 11)
     cols = tuple(pts[:, i].contiguous() for i in range(3))
     bench = cube_grid(N_REACH)
@@ -414,12 +563,14 @@ def phase_compare(cli_grid, cli_results):
         leg = make_leg()
         kr = ck.make_reachability_kernel(leg)
         kd = ck.make_distance_kernel(leg)
+        rp, dp = leg_params(leg)
         say(f"phase 3: {name}")
 
         # the shapes the main path gave the kernels: the CLI's own outputs
         _, reach_cli, dist_cli, _ = cli_results[name]
         want_r = plain_reach(kr, gx, gy, gz)
-        compare_reach("cli-grid", torch.from_numpy(reach_cli).to(DEV), want_r)
+        worst["reachability"] += compare_reach(
+            "cli-grid", torch.from_numpy(reach_cli).to(DEV), want_r)
         want_d = plain_dist(kd, gx, gy, gz)
         # (evaluate writes the distance vectors, not the distance kernel's
         # ok bits, so only the vectors are held here)
@@ -430,7 +581,8 @@ def phase_compare(cli_grid, cli_results):
         # (a) 1 M random points with NaN/inf/0 rows, AoS and SoA entries
         got_aos = kr(pts)
         got_soa = kr.soa(*cols)
-        compare_reach("random-1M aos", got_aos, plain_reach(kr, *cols))
+        worst["reachability"] += compare_reach(
+            "random-1M aos", got_aos, plain_reach(kr, *cols))
         check(torch.equal(got_aos, got_soa), "K1: SoA and [N,3] entries differ")
         d_aos = kd(pts)
         ok_s, dx, dy, dz = kd.soa(*cols)
@@ -451,7 +603,8 @@ def phase_compare(cli_grid, cli_results):
         compare_dist("independent ops/distance.py (not gated)",
                      d_aos, distance_ws(pts, ws), gate=False)
 
-        # (b) ragged sizes
+        # (b) ragged sizes: views of the [N, 3] tensor (stride 3) and of the
+        # SoA arrays, 16-byte aligned (offset 32) and not (offset 1)
         for n in (0, 1, 7, 129, 1000):
             sub = pts[32:32 + n]
             sc = tuple(c[32:32 + n] for c in cols)
@@ -460,16 +613,68 @@ def phase_compare(cli_grid, cli_results):
             okn, vn = kd(sub)
             check(okn.shape == (n,) and vn.shape == (n, 3), f"K2 n={n} shape")
             if n:
-                compare_reach(f"ragged n={n}", r, plain_reach(kr, *sc))
+                worst["reachability"] += compare_reach(
+                    f"ragged n={n}", r, plain_reach(kr, *sc))
                 compare_dist(f"ragged n={n}", (okn, vn), plain_dist(kd, *sc))
+            for off in (32, 1):
+                sv = tuple(c[off:off + n] for c in cols)
+                got = kr.soa(*sv)
+                worst["reachability"] += compare_reach(
+                    f"ragged SoA view +{off} n={n}", got, plain_reach(kr, *sv))
 
         # (c) the headline bench grid
-        compare_reach("bench-grid", kr.soa(*bench), plain_reach(kr, *bench))
+        worst["reachability"] += compare_reach(
+            "bench-grid", kr.soa(*bench), plain_reach(kr, *bench))
         ok_b, dx, dy, dz = kd.soa(*bench)
         _, w = compare_dist("bench-grid", (ok_b, torch.stack([dx, dy, dz], -1)),
                             plain_dist(kd, *bench))
         worst["distance"] = max(worst["distance"], w)
         del dx, dy, dz, ok_b
+
+        # (d) the mixed set: every 32 consecutive points span the four
+        # (upper, ext) configurations, valid and invalid queries and both
+        # dual-finish winners; NaN, +-inf, 0.0 and -0.0 rows first
+        mixed = ck.special_rows(
+            ck.mixed_points(leg, 1 << 20, 17, device=DEV))
+        mc = tuple(mixed[:, i].contiguous() for i in range(3))
+        worst["reachability"] += compare_reach(
+            "mixed-1M", kr.soa(*mc), plain_reach(kr, *mc))
+        ok_m, dx, dy, dz = kd.soa(*mc)
+        _, w = compare_dist("mixed-1M", (ok_m, torch.stack([dx, dy, dz], -1)),
+                            plain_dist(kd, *mc))
+        worst["distance"] = max(worst["distance"], w)
+
+        # (e) K1's generic instance and the other builds, bit for bit
+        # against this build's kernels on every set above
+        sets = {"cli-grid": (gx, gy, gz), "random-1M": cols,
+                "random-1M aos": tuple(pts[:, i] for i in range(3)),
+                "bench-grid": bench, "mixed-1M": mc,
+                "SoA view +1": tuple(c[1:100_001] for c in cols)}
+        gen = {c: generic_params(rp.consts, c) for c in ("first", "all")}
+        for tag, comps in sets.items():
+            here_r = reach_call(lib, comps, rp)
+            for cleared, gp in gen.items():
+                got = reach_call(lib, comps, gp)
+                want = ck.reachability_kernel_plain(*comps, gp.consts)
+                bad = int((got != want).sum())
+                alike = int((got != here_r).sum())
+                say(f"  {tag}: K1's generic instance, {cleared} collapse "
+                    f"cleared: {bad} mismatches against its plain version, "
+                    f"{alike} against the six-circle instance")
+                check(bad == 0 and alike == 0,
+                      f"{name} {tag}: K1's generic instance differs")
+                worst["reachability"] += bad
+            if not others:
+                continue
+            here_d = dist_call(lib, comps, dp)
+            for label, blib in others:
+                bad = int((reach_call(blib, comps, rp) != here_r).sum())
+                same_d = same_dist(dist_call(blib, comps, dp), here_d)
+                say(f"  {tag}: {label} == this build: K1 {bad} mismatches, "
+                    f"K2 ok and vectors bit-equal {same_d}")
+                check(bad == 0 and same_d,
+                      f"{name} {tag}: {label} differs from this build")
+            del here_d
     torch.cuda.synchronize()
     return worst
 
@@ -497,15 +702,22 @@ def bound_ms(n, bytes_per_point, flops_per_point):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def phase_timing(cli_grid):
-    """m2 leg, SoA entries, at the main path's sizes."""
+def phase_timing(cli_grid, others=()):
+    """m2 leg, SoA entries, at the main path's sizes and on the mixed sets;
+    K1's generic instance and the builds of ``others`` (``--against-leg``)
+    in turns with this build's."""
     leg = get_m2_leg()
     kr = ck.make_reachability_kernel(leg)
     kd = ck.make_distance_kernel(leg)
+    rp, dp = leg_params(leg)
+    lib = ck._library()
     r_flops = ck.reach_flops_per_point(kr.consts)
     d_flops = ck.dist_flops_per_point(kd.consts)
-    say(f"phase 4: m2 leg, SoA entries, CUDA events, median of 20 launches "
-        f"after 3 warm-ups; fp32 operations per point: K1 {r_flops}, K2 {d_flops}")
+    say(f"phase 4: m2 leg, SoA entries; ms: CUDA events around one launch "
+        f"of the wrapper, median of 20 after 3 warm-ups; queued: 50 launches "
+        f"back to back between two events, behind a sleep; fp32 operations per point: K1 "
+        f"{r_flops}, K2 at most {d_flops} (its bound counts what each set "
+        "needs, ck.dist_flops_needed)")
     rows = {"reachability": [], "distance": []}
 
     def one(kind, label, comps, plain_reps):
@@ -514,18 +726,50 @@ def phase_timing(cli_grid):
             fn = lambda: kr.soa(*comps)
             pl = lambda: plain_reach(kr, *comps)
             b, by = bound_ms(n, REACH_BYTES_PER_POINT, r_flops)
+            extra = {}
         else:
             fn = lambda: kd.soa(*comps)
             pl = lambda: plain_dist(kd, *comps)
-            b, by = bound_ms(n, DIST_BYTES_PER_POINT, d_flops)
+            need = ck.dist_flops_needed(*comps, kd.consts)
+            b, by = bound_ms(n, DIST_BYTES_PER_POINT, need / n)
+            full, _ = bound_ms(n, DIST_BYTES_PER_POINT, d_flops)
+            extra = {"flops_needed": need, "bound_full_ms": full}
         ms = time_cuda(fn)
+        q = queued_ms(fn)
         plain = time_cuda(pl, warmup=1, reps=plain_reps)
-        row = {"grid": label, "n": n, "ms": ms, "ns_per_point": ms * 1e6 / n,
-               "plain_ms": plain, "bound_ms": b, "bound_by": by}
+        row = {"grid": label, "n": n, "ms": ms, "queued_ms": q,
+               "ns_per_point": ms * 1e6 / n, "plain_ms": plain,
+               "bound_ms": b, "bound_by": by, **extra}
         rows[kind].append(row)
-        say(f"  {kind:12s} {label:10s} n={n:>10d}  {ms:9.4f} ms  "
-            f"{row['ns_per_point']:.5f} ns/point  plain {plain:9.2f} ms  "
-            f"bound {b:.4f} ms ({by})  share of bound {b / ms:.3f}")
+        say(f"  {kind:12s} {label:10s} n={n:>10d}  {ms:9.4f} ms  queued "
+            f"{q:.4f} ms  {row['ns_per_point']:.5f} ns/point  plain "
+            f"{plain:9.2f} ms  bound {b:.4f} ms ({by})  share of bound "
+            f"{b / ms:.3f} (queued {b / q:.3f})"
+            + (f"; full count {extra['bound_full_ms']:.4f} ms, share "
+               f"{extra['bound_full_ms'] / ms:.3f} (queued "
+               f"{extra['bound_full_ms'] / q:.3f})" if extra else ""))
+
+    def turns(kind, label, comps):
+        """K1's generic instance and each other build in turns with this
+        build's kernel, through the C launchers."""
+        call, params = ((reach_call, rp) if kind == "reachability"
+                        else (dist_call, dp))
+        here = lambda: call(lib, comps, params)
+        row = next(r for r in rows[kind] if r["grid"] == label)
+        row["in_turns"] = {}
+        builds = [(lb, o, params) for lb, o in others]
+        if kind == "reachability":
+            builds.insert(0, ("generic instance (every collapse cleared)",
+                              lib, generic_params(rp.consts, "all")))
+        for tag, blib, bparams in builds:
+            o, h, ratio, t = in_turns(
+                lambda: call(blib, comps, bparams), here)
+            row["in_turns"][tag] = {"other_ms": o, "this_ms": h,
+                                    "other_over_this": ratio, "ms": t}
+            say(f"    {KERNEL_IDS[kind]} {label}, queued, in turns (other, "
+                f"this, this, other) x 2: {tag} {o:.4f} ms, this build "
+                f"{h:.4f} ms: other / this {ratio:.3f} ("
+                + ", ".join(f"{x:.4f}" for x in t) + ")")
 
     cli_comps = tuple(
         torch.from_numpy(np.ascontiguousarray(cli_grid[:, i])).to(DEV)
@@ -535,9 +779,21 @@ def phase_timing(cli_grid):
     del cli_comps
     g = cube_grid(N_REACH)
     one("reachability", "bench-16M", g, 3)
+    turns("reachability", "bench-16M", g)
+    m = ck.mixed_points(leg, N_REACH, 19, device=DEV)
+    g = tuple(m[:, i].contiguous() for i in range(3))
+    del m
+    one("reachability", "mixed-16M", g, 3)
+    turns("reachability", "mixed-16M", g)
     g = cube_grid(1 << 22)
     check(g[0].numel() == N_DIST, "distance bench grid size")
     one("distance", "bench-4M", g, 3)
+    turns("distance", "bench-4M", g)
+    m = ck.mixed_points(leg, N_DIST, 23, device=DEV)
+    g = tuple(m[:, i].contiguous() for i in range(3))
+    del m
+    one("distance", "mixed-4M", g, 3)
+    turns("distance", "mixed-4M", g)
     g = sweep_grid()
     one("reachability", "sweep-66M", g, 1)
     one("distance", "sweep-66M", g, 1)
@@ -889,12 +1145,19 @@ def reach_bound(leg):
                            for _, _, args in rec)
 
 
-def dist_bound(leg):
-    """K2's bound over its launches for ``leg``: n points each (argument
-    9)."""
-    flops = ck.dist_flops_per_point(ck.dist_consts(leg))
-    return lambda rec: sum(bound_ms(args[9], DIST_BYTES_PER_POINT, flops)[0]
-                           for _, _, args in rec)
+def dist_bound(leg, comps):
+    """K2's bound over its launches for ``leg``, each on the points
+    ``comps`` (checked by their count, argument 9): the operations those
+    points need (ck.dist_flops_needed)."""
+    n = comps[0].numel()
+    need = ck.dist_flops_needed(*comps, ck.dist_consts(leg))
+
+    def bound(rec):
+        check(all(args[9] == n for _, _, args in rec),
+              "K2 was launched on other points than the bound counts")
+        return sum(bound_ms(n, DIST_BYTES_PER_POINT, need / n)[0]
+                   for _ in rec)
+    return bound
 
 
 def k4_need(tab, legs_in, starts, lens, masks, legs_out):
@@ -2008,8 +2271,7 @@ def run_solve(data, *extra, capture=None, show_levels=False,
 
     path = f"cli solve {' '.join(extra)}"
     report_clock(path, recs,
-                 {"distance": dist_bound(get_m2_leg()),
-                  "distance_cells": lambda rec: cells_bound(cell_calls),
+                 {"distance_cells": lambda rec: cells_bound(cell_calls),
                   **{key: cell_bounds(name)
                      for name, key in CELL_WRAPPERS.items()}})
     if k5_calls:
@@ -3025,14 +3287,15 @@ def special_batches(b):
                 b, level=lv._replace(big_cell=not lv.big_cell))}
 
 
-def phase_identity_cells(solve):
+def phase_identity_cells(solve, others=()):
     """K2's cell kernel on the largest batch (by cell x foothold pairs) of
     each identity level 2-6 of phase 8's four deep solves, and on special
     batches: flags against the plain version and against the form it
     replaced (the eager loop launching K2's point kernel per foothold chunk
     and leg), its audit against the plain prefilter, its time in turns with
-    that form and beside its bound.  Returns the rows and the mismatching
-    flags counted over every batch."""
+    that form and beside its bound, and in turns with the cell kernel of
+    each build of ``others`` (``--against-leg``).  Returns the rows and the
+    mismatching flags counted over every batch."""
     lib = ck._library()
     k2_params = {}
 
@@ -3084,6 +3347,17 @@ def phase_identity_cells(solve):
                        big_cell=b["level"].big_cell, ms=ms,
                        pr4_form_ms=pr4_ms, plain_s=plain_s, bound_ms=bd,
                        bound_by=by)
+            for label, olib in others:
+                check(torch.equal(cells_launch(olib, b), got),
+                      f"{name} depth {b['depth']}: {label} gives other flags")
+                o, h, ratio, tt = in_turns(lambda: cells_launch(olib, b),
+                                          lambda: cells_launch(lib, b))
+                row.setdefault("in_turns", {})[label] = {
+                    "other_ms": o, "this_ms": h, "other_over_this": ratio,
+                    "ms": tt}
+                say(f"    {label}: flags equal; queued, in turns (other, "
+                    f"this, this, other) x 2: {o:.4f} ms against this "
+                    f"build's {h:.4f} ms: other / this {ratio:.3f}")
             rows.append(row)
             say(f"  {name} depth {b['depth']}: {C} cells x {F} footholds, "
                 f"{n_in} pairs in the box, big_cell {b['level'].big_cell}; "
@@ -3110,15 +3384,22 @@ def phase_identity_cells(solve):
     say(f"phase 11: {len(rows)} real batches, {total_bad} mismatching flags; "
         f"summed cell kernel {tot['ms']:.3f} ms against the eager loop's "
         f"{tot['pr4_form_ms']:.1f} ms and a bound of {tot['bound_ms']:.4f} ms")
+    for label, _ in others:
+        o = sum(r["in_turns"][label]["other_ms"] for r in rows)
+        h = sum(r["in_turns"][label]["this_ms"] for r in rows)
+        say(f"phase 11: {label} against this build, summed over the "
+            f"{len(rows)} batches, queued in turns: {o:.4f} ms against "
+            f"{h:.4f} ms: other / this {o / h:.3f}")
     return rows, total_bad
 
 
-def phase_reach_probe():
+def phase_reach_probe(others=()):
     """K7, the io-only floor of tools/reach_kernel_probe.py, through the
     probe's own function (``python -m legmov_tpu_torch.reach_probe``) at
     16,777,216 points, timed in turns with K1; then held against its plain
     version bit for bit on the same grid with NaN, inf and zero-sum rows,
-    on an unaligned view and a ragged length."""
+    on an unaligned view and a ragged length; then K7, K1 and the K1 of
+    each build of ``others`` (``--against-leg``) queued, in turns."""
     say("phase 12: the reach probe: K1 and its io-only floor (K7) in turns, "
         f"{N_REACH} points of bench.py's grid, median of 20 launches a round")
     ck.io_only_kernel.launches = 0
@@ -3150,10 +3431,36 @@ def phase_reach_probe():
         f"{res['bound_ms']:.4f} ms (bytes): K7 at {res['bound_ms'] / io:.3f}"
         f" of it; K1 {k1:.4f} ms, the floor {io / k1:.3f} of K1 "
         f"({launches} io-only launches by the probe)")
+    # the same grid, queued: the card's time a launch, without the
+    # wrappers' host time that events around one launch also count
+    g = reach_probe.make_grid(N_REACH)
+    pc = tuple(torch.from_numpy(np.ascontiguousarray(g[:, i])).to(DEV)
+               for i in range(3))
+    lib = ck._library()
+    rp, _ = leg_params(get_m2_leg())
+    floor = lambda: ck.io_only_kernel(*pc)
+    here = lambda: reach_call(lib, pc, rp)
+    fl, k1q, _, t = in_turns(floor, here)
+    say(f"  queued, in turns (K7, K1, K1, K7) x 2: K7 {fl:.4f} ms, K1 "
+        f"{k1q:.4f} ms: K1 / floor {k1q / fl:.3f}; K7 at "
+        f"{res['bound_ms'] / fl:.3f} of the bound, K1 at "
+        f"{res['bound_ms'] / k1q:.3f} (" + ", ".join(f"{x:.4f}" for x in t)
+        + ")")
+    other_rows = {}
+    for label, olib in others:
+        o, h, ratio, t = in_turns(lambda: reach_call(olib, pc, rp), here)
+        other_rows[label] = {"other_ms": o, "this_ms": h,
+                             "other_over_this": ratio,
+                             "other_over_floor": o / fl, "ms": t}
+        say(f"  queued, in turns with this K1 (other, this, this, other) x "
+            f"2: {label} {o:.4f} ms ({o / fl:.3f} of the floor), this K1 "
+            f"{h:.4f} ms ({h / fl:.3f}): other / this {ratio:.3f}")
     return {"launches": launches, "max_abs_err": float(bad), "n": N_REACH,
             "ms": io, "plain_ms": plain_ms, "bound_ms": res["bound_ms"],
             "bound_by": "bytes", "k1_ms": k1,
             "k1_over_floor": res["k1_over_floor"],
+            "queued_ms": fl, "k1_queued_ms": k1q,
+            "k1_over_floor_queued": k1q / fl, "k1_in_turns": other_rows,
             "rounds_ms": res["io_only"]["rounds_ms"],
             "k1_rounds_ms": res["K1"]["rounds_ms"]}
 
@@ -3247,6 +3554,14 @@ def main(argv=None):
                     help="phase 10 also times the kernels built from this "
                     "source (an earlier cell_kernels.cu), in turns with "
                     "this tree's; repeatable")
+    ap.add_argument("--against-leg", action="append", default=[],
+                    metavar="LEG_KERNELS_CU",
+                    help="phases 4, 11 and 12 also time K1, K2's point and "
+                    "cell kernels built from this source (an earlier "
+                    "leg_kernels.cu, optionally followed by nvcc flags in "
+                    "the same argument), in turns with this tree's, and "
+                    "phase 3 holds their outputs to this tree's bit for "
+                    "bit; repeatable")
     ap.add_argument("--against-multileg", action="append", default=[],
                     metavar="MULTILEG_KERNELS_CU",
                     help="phases 5 and 7 also time K3 (on `cli map --solver "
@@ -3267,6 +3582,7 @@ def main(argv=None):
         clock[0] = now
 
     smi, occupancy = phase_device_and_build()
+    leg_others = leg_builds(args.against_leg)
     took(1)
     launches = map_launches = worst = rows = row3 = row4 = row_round = None
     solve = gates = cell_rows = ident_rows = ident_bad = None
@@ -3286,10 +3602,10 @@ def main(argv=None):
             terrain = lio.load_points(os.path.join(data, "numpy_input_t"))
             took(8)
     if 3 in on:
-        worst = phase_compare(cli_grid, cli_results)
+        worst = phase_compare(cli_grid, cli_results, leg_others)
         took(3)
     if 4 in on:
-        rows = phase_timing(cli_grid)
+        rows = phase_timing(cli_grid, leg_others)
         took(4)
     cli_grid = cli_results = None
     torch.cuda.empty_cache()
@@ -3300,7 +3616,7 @@ def main(argv=None):
         cell_rows = phase_cell_kernels(solve, gates, terrain, args.against)
         took(10)
     if 11 in on:
-        ident_rows, ident_bad = phase_identity_cells(solve)
+        ident_rows, ident_bad = phase_identity_cells(solve, leg_others)
         took(11)
     solve_launches_ = solve["launches"] if solve else None
     solve = None
@@ -3315,7 +3631,7 @@ def main(argv=None):
         took(7)
     probe = None
     if 12 in on:
-        probe = phase_reach_probe()
+        probe = phase_reach_probe(leg_others)
         took(12)
     if 13 in on:
         phase_tables()
@@ -3333,8 +3649,12 @@ def main(argv=None):
             "name": name, "route": "cuda",
             "source": "legmov_tpu_torch/csrc/leg_kernels.cu",
             "replaces": f"legmov_tpu/ops/pallas_kernels.py:{line}",
-            "launches": launches[kind], "max_abs_err": worst[kind],
-            "n": r["n"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "launches": launches[kind],
+            # K1's booleans: 1.0 if any mismatched (the run then fails)
+            "max_abs_err": (float(min(worst[kind], 1))
+                            if kind == "reachability" else worst[kind]),
+            "n": r["n"], "ms": r["ms"], "queued_ms": r["queued_ms"],
+            "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": None, "sizes": rows[kind],
         }
@@ -3393,7 +3713,9 @@ def main(argv=None):
     say(json.dumps({"kernels": [
         entry("reachability", "legmov_reach_kernel", 245, "bench-16M")
         | {"io_only_floor_ms": probe["ms"], "probe_ms": probe["k1_ms"],
-           "over_floor": probe["k1_over_floor"]},
+           "over_floor": probe["k1_over_floor"],
+           "over_floor_queued": probe["k1_over_floor_queued"]}
+        | on_paths("reachability"),
         entry("distance", "legmov_dist_kernel", 588, "bench-4M",
               ) | {"forms": ["legmov_dist_kernel",
                                "legmov_dist_cells_kernel"]}

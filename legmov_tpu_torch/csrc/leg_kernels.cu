@@ -17,11 +17,13 @@
 // geometry arrives as one by-value `__grid_constant__` parameter block that
 // the host fills from the workspace tables, so one binary serves every leg.
 //
-// The two point kernels: one thread per point in a grid-stride loop, ragged
-// tail masked by `i < n`, 64-bit indexing, an element stride on the inputs
-// (1 for SoA arrays, 3 for the columns of an [N, 3] tensor) and, for the
-// distance vectors, on the outputs.  K2 has a second kernel, for the cells of
-// the hierarchical solve (legmov_dist_cells_kernel), on the same body.
+// The two point kernels run grid-stride loops with 64-bit indexing and take
+// an element stride on the inputs (1 for SoA arrays, 3 for the columns of an
+// [N, 3] tensor) and, for the distance vectors, on the outputs: K1 four
+// points a thread where the arrays allow 16-byte loads (a template whose
+// instance the launcher picks from the leg), K2 one.  K2 has a second
+// kernel, for the cells of the hierarchical solve (legmov_dist_cells_kernel),
+// on the same body.
 // Launchers enqueue on the caller's stream, do not synchronise, and return
 // cudaGetLastError().
 
@@ -79,20 +81,30 @@ struct DistParams {
 // shared device helpers
 // ---------------------------------------------------------------------------
 
-// raw atan2(yp, xp) > theta for a constant threshold direction, trig-free
+// raw atan2(yp, xp) > theta for a constant threshold direction, trig-free:
+// theta < 0 ? (nn | pos) : (nn & pos).  PRED writes it as one boolean
+// expression (one predicate operation) instead of a select on theta's
+// sign: faster where the sign is a parameter-bank operand (the point
+// kernels), slower where it is read from shared memory (the cell driver,
+// whose register count it raises from 96 to 112); both measured on an H100
+template <bool PRED>
 __device__ __forceinline__ bool angle_gt(float xp, float yp, float c, float s,
-                                         int theta_neg) {
+                                         bool theta_neg) {
     const bool pos = (yp * c - xp * s) > 0.0f;
     const bool nn = yp >= 0.0f;
-    return theta_neg ? (nn | pos) : (nn & pos);
+    return PRED ? (nn & pos) | (theta_neg & (nn | pos))
+                : (theta_neg ? (nn | pos) : (nn & pos));
 }
 
-// raw atan2(yp, xp) < theta (strict), mirror of angle_gt
+// raw atan2(yp, xp) < theta (strict), mirror of angle_gt:
+// theta < 0 ? (below & neg) : (below | neg)
+template <bool PRED>
 __device__ __forceinline__ bool angle_lt(float xp, float yp, float c, float s,
-                                         int theta_neg) {
+                                         bool theta_neg) {
     const bool neg = (yp * c - xp * s) < 0.0f;
     const bool below = yp < 0.0f;
-    return theta_neg ? (below & neg) : (below | neg);
+    return PRED ? (below & neg) | ((!theta_neg) & (below | neg))
+                : (theta_neg ? (below & neg) : (below | neg));
 }
 
 // ---------------------------------------------------------------------------
@@ -107,73 +119,130 @@ __device__ __forceinline__ bool angle_lt(float xp, float yp, float c, float s,
 // (coxa frame 7, limit tests 8, sqrt and plane coordinate 5, region bits
 // 15, q 3, six unique circles x 6; reach_flops_per_point in
 // ops/cuda_kernels.py).  At 3.35 TB/s and 67 TFLOP/s that is 3.9 ps
-// against 1.1 ps a point: bytes bound it, so the design moves the
-// minimum (no padded copy, no transpose, strided reads of an [N, 3] tensor
-// in place, one byte written) and keeps everything else in registers.
-// Unlike the TPU form, which evaluates all four (region, ext) circle sets
-// densely and selects, a thread tests the unique circles once into two bit
-// sets and checks only the masks of its own configuration.
+// against 1.1 ps a point: bytes bound it.  The floor of this access
+// pattern on the card is K7 below, the same loads and stores with no
+// geometry.
+//
+// Design: K7's I/O shape.  For SoA arrays (stride 1, 16-byte aligned) a
+// thread takes four points a step with three 16-byte loads and one 4-byte
+// store, in a grid-stride loop; the ragged tail, unaligned arrays and the
+// columns of an [N, 3] tensor (stride 3) go through a scalar loop, correct
+// but not tuned (the launcher picks the path from the pointers and the
+// stride).  The geometry stays out of memory: the kernel is a
+// template on the unique-circle count, instantiated for the counts of the
+// shipped legs with every circle's interval collapse legal (see the
+// launcher), so the circle loop unrolls and each circle's constants are
+// operands of the parameter bank at fixed offsets; any other leg takes the
+// generic instance (-1), which unrolls to LEGMOV_MAX_CIRCLES under the
+// launch-uniform predicates `c < n_circles` and `collapse[c]`.  Unlike the
+// TPU form, which evaluates all four (region, ext) circle sets densely and
+// selects, a point tests the unique circles once, collects the tests it
+// fails in one word (attractive tests in the low half, repulsive in the
+// high) and checks it against its own configuration's mask, selected among
+// four registers, not read by a per-lane index.  The angle tests are one
+// predicate expression each (angle_gt).
 // ---------------------------------------------------------------------------
 
-extern "C" __global__ void __launch_bounds__(LEGMOV_BLOCK)
+// Per (upper, ext) configuration, the circles whose test it needs to pass:
+// bit c its attractive test of circle c, bit 16 + c its repulsive one.
+struct ReachMasks {
+    unsigned m[4];
+    __device__ __forceinline__ explicit ReachMasks(const ReachParams& P) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) m[i] = P.pos_mask[i] | (P.neg_mask[i] << 16);
+    }
+};
+
+// NC > 0: NC unique circles, all collapsed; NC == -1: any leg
+template <int NC>
+__device__ __forceinline__ bool reach_point(const ReachParams& P,
+                                            const ReachMasks& M, float xin,
+                                            float yin, float zin) {
+    // place_over_coxa: shift by -body along x, pitch by -coxa_pitch
+    const float px = xin - P.body;
+    const float y = yin;
+    const float pz = zin;
+    const float x = px * P.cp - pz * P.sp;
+    const float z = px * P.sp + pz * P.cp;
+
+    // mirrored half-plane; the sign bit sees -0.0
+    const bool flip = (__float_as_uint(x) >> 31) != 0u;
+    const float fx = flip ? -x : x;
+    const float fy = flip ? -y : y;
+    bool coxa_invalid = false;
+    if (P.gt_possible)
+        coxa_invalid = (fy * P.cmax_c - fx * P.cmax_s) > 0.0f;
+    if (P.lt_possible)
+        coxa_invalid = coxa_invalid | ((fy * P.cmin_c - fx * P.cmin_s) < 0.0f);
+
+    const float rho = sqrtf(x * x + y * y);
+    const float xp = (flip ? -rho : rho) - P.coxa_length;
+    const float yp = z;
+
+    const bool upper = angle_gt<true>(xp, yp, P.mid_c, P.mid_s, P.mid_neg);
+    const bool gt_lo =
+        angle_gt<true>(xp, yp, P.sat_c[0], P.sat_s[0], P.sat_neg[0]);
+    const bool gt_up =
+        angle_gt<true>(xp, yp, P.sat_c[1], P.sat_s[1], P.sat_neg[1]);
+    const bool ext = upper ^ (upper ? gt_up : gt_lo);
+
+    // each unique circle once, both validity polarities: the tests it fails
+    const float q = xp * xp + yp * yp;
+    unsigned fail = 0u;
+#pragma unroll
+    for (int c = 0; c < (NC > 0 ? NC : LEGMOV_MAX_CIRCLES); ++c) {
+        if (NC < 0 && c >= P.n_circles) continue;
+        const float t = q + P.ax[c] * xp + P.ay[c] * yp;
+        bool vp, vn;
+        if (NC > 0 || P.collapse[c]) {
+            // contiguous-interval collapse; !(t <= lo) and not (t > lo),
+            // so a NaN t keeps the truth value of `~inside | near`
+            vp = t < P.hi2k[c];
+            vn = !(t <= P.lo2k[c]);
+        } else {
+            const bool inside = t <= P.r2k[c];
+            const bool near = (t < P.hi2k[c]) & (t > P.lo2k[c]);
+            vp = inside | near;
+            vn = (!inside) | near;
+        }
+        fail |= (vp ? 0u : 1u) << c;
+        fail |= (vn ? 0u : 1u) << (16 + c);
+    }
+    // the configuration's mask, selected among registers
+    const unsigned m = upper ? (ext ? M.m[3] : M.m[2]) : (ext ? M.m[1] : M.m[0]);
+    return (!coxa_invalid) & ((fail & m) == 0u);
+}
+
+// `vector`: the inputs are SoA arrays on 16-byte boundaries and the output
+// on a 4-byte one (the launcher decides)
+template <int NC>
+__global__ void __launch_bounds__(LEGMOV_BLOCK)
 legmov_reach_kernel(const float* __restrict__ xs, const float* __restrict__ ys,
                     const float* __restrict__ zs, long long in_stride,
-                    unsigned char* __restrict__ out, long long n,
+                    unsigned char* __restrict__ out, long long n, int vector,
                     const __grid_constant__ ReachParams P) {
+    const ReachMasks M(P);
     const long long step = (long long)gridDim.x * blockDim.x;
-    for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-         i += step) {
-        // place_over_coxa: shift by -body along x, pitch by -coxa_pitch
-        const float px = xs[i * in_stride] - P.body;
-        const float y = ys[i * in_stride];
-        const float pz = zs[i * in_stride];
-        const float x = px * P.cp - pz * P.sp;
-        const float z = px * P.sp + pz * P.cp;
-
-        // mirrored half-plane; the sign bit sees -0.0
-        const bool flip = (__float_as_uint(x) >> 31) != 0u;
-        const float fx = flip ? -x : x;
-        const float fy = flip ? -y : y;
-        bool coxa_invalid = false;
-        if (P.gt_possible)
-            coxa_invalid = (fy * P.cmax_c - fx * P.cmax_s) > 0.0f;
-        if (P.lt_possible)
-            coxa_invalid = coxa_invalid | ((fy * P.cmin_c - fx * P.cmin_s) < 0.0f);
-
-        const float rho = sqrtf(x * x + y * y);
-        const float xp = (flip ? -rho : rho) - P.coxa_length;
-        const float yp = z;
-
-        const bool upper = angle_gt(xp, yp, P.mid_c, P.mid_s, P.mid_neg);
-        const bool gt_lo = angle_gt(xp, yp, P.sat_c[0], P.sat_s[0], P.sat_neg[0]);
-        const bool gt_up = angle_gt(xp, yp, P.sat_c[1], P.sat_s[1], P.sat_neg[1]);
-        const bool ext = upper ^ (upper ? gt_up : gt_lo);
-
-        // each unique circle once, both validity polarities
-        const float q = xp * xp + yp * yp;
-        unsigned val_pos = 0u, val_neg = 0u;
-        for (int c = 0; c < P.n_circles; ++c) {
-            const float t = q + P.ax[c] * xp + P.ay[c] * yp;
-            bool vp, vn;
-            if (P.collapse[c]) {
-                // contiguous-interval collapse; !(t <= lo) and not (t > lo),
-                // so a NaN t keeps the truth value of `~inside | near`
-                vp = t < P.hi2k[c];
-                vn = !(t <= P.lo2k[c]);
-            } else {
-                const bool inside = t <= P.r2k[c];
-                const bool near = (t < P.hi2k[c]) & (t > P.lo2k[c]);
-                vp = inside | near;
-                vn = (!inside) | near;
-            }
-            val_pos |= (vp ? 1u : 0u) << c;
-            val_neg |= (vn ? 1u : 0u) << c;
+    const long long first = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    long long done = 0;
+    if (vector) {
+        const float4* x4 = reinterpret_cast<const float4*>(xs);
+        const float4* y4 = reinterpret_cast<const float4*>(ys);
+        const float4* z4 = reinterpret_cast<const float4*>(zs);
+        uchar4* o4 = reinterpret_cast<uchar4*>(out);
+        const long long n4 = n >> 2;
+        for (long long i = first; i < n4; i += step) {
+            const float4 a = x4[i], b = y4[i], c = z4[i];
+            o4[i] = make_uchar4(reach_point<NC>(P, M, a.x, b.x, c.x),
+                                reach_point<NC>(P, M, a.y, b.y, c.y),
+                                reach_point<NC>(P, M, a.z, b.z, c.z),
+                                reach_point<NC>(P, M, a.w, b.w, c.w));
         }
-        const int cfg = (upper ? 2 : 0) + (ext ? 1 : 0);
-        const unsigned pm = P.pos_mask[cfg], nm = P.neg_mask[cfg];
-        const bool plane_ok = ((val_pos & pm) == pm) & ((val_neg & nm) == nm);
-        out[i] = (unsigned char)((!coxa_invalid) & plane_ok);
+        done = n4 << 2;
     }
+    for (long long i = done + first; i < n; i += step)
+        out[i] = reach_point<NC>(P, M, xs[i * in_stride], ys[i * in_stride],
+                                    zs[i * in_stride]);
 }
 
 // ---------------------------------------------------------------------------
@@ -184,23 +253,36 @@ legmov_reach_kernel(const float* __restrict__ xs, const float* __restrict__ ys,
 // default variant: rsqrt clamp and linear-form corner tournament.
 //
 // Bound on this card: it moves 25 bytes per point (three f32 in, one byte
-// and three f32 out) and does 651 fp32 operations per point with ten live
-// corners (579 and 591 for the two shipped legs, which have four and five),
-// counted as for K1 (frame and heading 14; per finish branch 310:
-// five angle tests 25, rotation 7, region bits 16, four circles validated
-// and clamped 72, 4 x 3 cross-validations 96, circle tournament 4, corner
-// tournament 63, result 3, limit-plane alternative and un-rotation 24;
-// final select and un-pitch 17; dist_flops_per_point in
+// and three f32 out) and does at most 651 fp32 operations per point with
+// ten live corners (579 and 591 for the two shipped legs, which have four
+// and five), counted as for K1 (frame and heading 14; per finish branch
+// 310: five angle tests 25, rotation 7, region bits 16, four circles
+// validated and clamped 72, 4 x 3 cross-validations 96, circle tournament
+// 4, corner tournament 63, result 3, limit-plane alternative and
+// un-rotation 24; final select and un-pitch 17; dist_flops_per_point in
 // ops/cuda_kernels.py).  At 3.35 TB/s and 67 TFLOP/s that is 7.5 ps
 // against 9.7 ps a point: operations bound it, and since no multiply-add
-// is fused here the real ceiling is lower still.  The design keeps the whole
-// program of a point in one thread's registers (no intermediate ever
-// reaches memory, and the two finish branches share the frame, the heading
-// and the parameter block), reads the per-point circle tables by indexing
-// the constant parameter block with the configuration instead of building
-// them with select chains, and uses one rsqrtf per clamp where the TPU
-// kernel uses lax.rsqrt.  It does not apply the interval collapse: it
-// computes what the TPU kernel computes.
+// is fused here the real ceiling is lower still.  Not every point needs
+// all of it: a branch's tail (its clamps, tournaments and limit plane) is
+// read only where the two branches' results agree or that branch won, and
+// the corner tournament only where the query is invalid
+// (dist_flops_needed counts what a set of points needs, the bound that
+// chip_smoke.py states).
+//
+// Design: the whole program of a point in one thread's registers (no
+// intermediate reaches memory; the two finish branches share the frame and
+// the heading).  The point driver stages the 16 (configuration, slot)
+// circles in shared memory once a block, two float4 a slot, where a warp
+// whose points sit in different configurations reads them in one access
+// each instead of the serialised constant-bank accesses of a per-lane
+// index.  Measured on an H100 and left out (PERF.md): skipping a
+// branch's tail or the corner tournament by warp vote where no lane needs
+// it, skipping a clamp's cross-validation when its score cannot win, an
+// instance for each corner count (more registers, fewer warps) and two
+// points a thread all made the kernel slower.  It uses one rsqrtf per clamp where the TPU
+// kernel uses lax.rsqrt, and does not apply the interval collapse: it
+// computes what the TPU kernel computes.  The cell driver below shares the
+// body, with its slot tables in its shared copy of the parameter block.
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ bool circ_valid(float px, float py, float cx,
@@ -214,13 +296,58 @@ __device__ __forceinline__ bool circ_valid(float px, float py, float cx,
     return (inside == att) | near;
 }
 
+// The (configuration, slot) circles, read where the caller keeps them, and
+// the form of the angle tests that suits where the leg's scalars are read
+// from: in a DistParams (the cell driver's shared copy) ...
+struct ParamSlots {
+    static constexpr bool kPredAngles = false;  // see angle_gt
+    const DistParams& P;
+    __device__ __forceinline__ void get(int i, float& cx, float& cy, float& r,
+                                        float& r2, float& hi2, float& lo2,
+                                        bool& att) const {
+        cx = P.cx[i];
+        cy = P.cy[i];
+        r = P.r[i];
+        r2 = P.r2[i];
+        hi2 = P.hi2[i];
+        lo2 = P.lo2[i];
+        att = P.att[i] != 0;
+    }
+};
+
+// ... or staged in shared memory by the point driver (its scalars are
+// parameter-bank operands): a = (cx, cy, r, r2), b = (hi2, lo2, att as
+// bits, unused)
+struct StagedSlots {
+    static constexpr bool kPredAngles = true;
+    const float4* a;
+    const float4* b;
+    __device__ __forceinline__ void get(int i, float& cx, float& cy, float& r,
+                                        float& r2, float& hi2, float& lo2,
+                                        bool& att) const {
+        const float4 u = a[i], v = b[i];
+        cx = u.x;
+        cy = u.y;
+        r = u.z;
+        r2 = u.w;
+        hi2 = v.x;
+        lo2 = v.y;
+        att = __float_as_int(v.z) != 0;
+    }
+};
+
 // ops/plane.py plane_clamp on the configuration's four circles + corners
-__device__ __forceinline__ void plane_clamp(const DistParams& P, float xp,
+template <class Slots>
+__device__ __forceinline__ void plane_clamp(const DistParams& P,
+                                            const Slots& S, float xp,
                                             float yp, bool& overall,
                                             float& out_x, float& out_y) {
-    const bool upper = angle_gt(xp, yp, P.mid_c, P.mid_s, P.mid_neg);
-    const bool gt_lo = angle_gt(xp, yp, P.sat_c[0], P.sat_s[0], P.sat_neg[0]);
-    const bool gt_up = angle_gt(xp, yp, P.sat_c[1], P.sat_s[1], P.sat_neg[1]);
+    constexpr bool pred = Slots::kPredAngles;
+    const bool upper = angle_gt<pred>(xp, yp, P.mid_c, P.mid_s, P.mid_neg);
+    const bool gt_lo =
+        angle_gt<pred>(xp, yp, P.sat_c[0], P.sat_s[0], P.sat_neg[0]);
+    const bool gt_up =
+        angle_gt<pred>(xp, yp, P.sat_c[1], P.sat_s[1], P.sat_neg[1]);
     const bool ext = upper ^ (upper ? gt_up : gt_lo);
     const int base = ((upper ? 2 : 0) + (ext ? 1 : 0)) * 4;
     // the TPU kernel builds its attract bits from `ones = (xp == xp)` and
@@ -232,13 +359,9 @@ __device__ __forceinline__ void plane_clamp(const DistParams& P, float xp,
     bool atts[4];
 #pragma unroll
     for (int s = 0; s < 4; ++s) {
-        cxs[s] = P.cx[base + s];
-        cys[s] = P.cy[base + s];
-        rs[s] = P.r[base + s];
-        r2s[s] = P.r2[base + s];
-        hi2s[s] = P.hi2[base + s];
-        lo2s[s] = P.lo2[base + s];
-        atts[s] = (P.att[base + s] != 0) == ordered;
+        bool att;
+        S.get(base + s, cxs[s], cys[s], rs[s], r2s[s], hi2s[s], lo2s[s], att);
+        atts[s] = att == ordered;
     }
 
     overall = true;
@@ -305,16 +428,20 @@ __device__ __forceinline__ void plane_clamp(const DistParams& P, float xp,
 
 // ops/distance.py _finish_finding_closest.  `flipped` selects the pi-flip
 // branch, whose raw angle is the angle of direction (-x, -y).
-__device__ __forceinline__ void finish(const DistParams& P, float x, float y,
-                                       float z, float cos_a, float sin_a,
-                                       bool flipped, bool& res, float& gx,
-                                       float& gy, float& gz) {
+template <class Slots>
+__device__ __forceinline__ void finish(const DistParams& P, const Slots& S,
+                                       float x, float y, float z, float cos_a,
+                                       float sin_a, bool flipped, bool& res,
+                                       float& gx, float& gy, float& gz) {
     const float ax = flipped ? -x : x;
     const float ay = flipped ? -y : y;
-    const bool mega = angle_gt(ax, ay, P.dir_c[0], P.dir_s[0], P.dir_neg[0]) |
-                      angle_lt(ax, ay, P.dir_c[1], P.dir_s[1], P.dir_neg[1]);
-    const bool over = angle_gt(ax, ay, P.dir_c[2], P.dir_s[2], P.dir_neg[2]);
-    const bool under = angle_lt(ax, ay, P.dir_c[3], P.dir_s[3], P.dir_neg[3]);
+    constexpr bool pred = Slots::kPredAngles;
+    const bool mega =
+        angle_gt<pred>(ax, ay, P.dir_c[0], P.dir_s[0], P.dir_neg[0]) |
+        angle_lt<pred>(ax, ay, P.dir_c[1], P.dir_s[1], P.dir_neg[1]);
+    const bool over = angle_gt<pred>(ax, ay, P.dir_c[2], P.dir_s[2], P.dir_neg[2]);
+    const bool under =
+        angle_lt<pred>(ax, ay, P.dir_c[3], P.dir_s[3], P.dir_neg[3]);
     const bool saturated = mega | over | under;
     const float c1 =
         mega ? -cos_a : (over ? P.cmax_c : (under ? P.cmin_c : cos_a));
@@ -324,9 +451,10 @@ __device__ __forceinline__ void finish(const DistParams& P, float x, float y,
     const float yr = (-x) * s1 + y * c1;
     bool was_valid;
     float dxp, dzp;
-    plane_clamp(P, xr - P.coxa_length, z, was_valid, dxp, dzp);
+    plane_clamp(P, S, xr - P.coxa_length, z, was_valid, dxp, dzp);
     // alternative boundary: the coxa angular-limit plane
-    const bool use_max = angle_gt(ax, ay, P.dir_c[4], P.dir_s[4], P.dir_neg[4]);
+    const bool use_max =
+        angle_gt<pred>(ax, ay, P.dir_c[4], P.dir_s[4], P.dir_neg[4]);
     const float cl = use_max ? P.cmax_c : P.cmin_c;
     const float sl = use_max ? P.cmax_s : P.cmin_s;
     const float c2 = cl * c1 + sl * s1;
@@ -347,7 +475,9 @@ __device__ __forceinline__ void finish(const DistParams& P, float x, float y,
 // One point of K2's body: a point in the leg's frame (the frame the leg's
 // geometry is given in, before the coxa pitch) -> ok and the displacement
 // to the workspace boundary in that frame.  Both kernels below call it.
-__device__ __forceinline__ bool dist_point(const DistParams& P, float xin,
+template <class Slots>
+__device__ __forceinline__ bool dist_point(const DistParams& P,
+                                           const Slots& S, float xin,
                                            float yin, float zin, float& gx,
                                            float& gy, float& gz) {
     const float px = xin - P.body;
@@ -365,8 +495,8 @@ __device__ __forceinline__ bool dist_point(const DistParams& P, float xin,
 
     bool res, resf;
     float dx, dy, dz, fx, fy, fz;
-    finish(P, x, y, z, cos_a, sin_a, false, res, dx, dy, dz);
-    finish(P, x, y, z, -cos_a, -sin_a, true, resf, fx, fy, fz);
+    finish(P, S, x, y, z, cos_a, sin_a, false, res, dx, dy, dz);
+    finish(P, S, x, y, z, -cos_a, -sin_a, true, resf, fx, fy, fz);
 
     const float d2d = dx * dx + dy * dy + dz * dz;
     const float d2f = fx * fx + fy * fy + fz * fz;
@@ -380,8 +510,8 @@ __device__ __forceinline__ bool dist_point(const DistParams& P, float xin,
     return res | resf;
 }
 
-// The point kernel: one thread per point (`cli evaluate`, the `[N, 3]` and
-// `.soa` entries).
+// The point kernel (`cli evaluate`, the `[N, 3]` and `.soa` entries): one
+// thread a point in a grid-stride loop.
 extern "C" __global__ void __launch_bounds__(LEGMOV_BLOCK)
 legmov_dist_kernel(const float* __restrict__ xs, const float* __restrict__ ys,
                    const float* __restrict__ zs, long long in_stride,
@@ -389,11 +519,20 @@ legmov_dist_kernel(const float* __restrict__ xs, const float* __restrict__ ys,
                    float* __restrict__ dx_out, float* __restrict__ dy_out,
                    float* __restrict__ dz_out, long long out_stride,
                    long long n, const __grid_constant__ DistParams P) {
+    __shared__ float4 slot_a[16], slot_b[16];
+    if (threadIdx.x < 16) {
+        const int i = threadIdx.x;
+        slot_a[i] = make_float4(P.cx[i], P.cy[i], P.r[i], P.r2[i]);
+        slot_b[i] = make_float4(P.hi2[i], P.lo2[i], __int_as_float(P.att[i]),
+                                0.0f);
+    }
+    __syncthreads();
+    const StagedSlots S{slot_a, slot_b};
     const long long step = (long long)gridDim.x * blockDim.x;
     for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
          i += step) {
         float gx, gy, gz;
-        const bool ok = dist_point(P, xs[i * in_stride], ys[i * in_stride],
+        const bool ok = dist_point(P, S, xs[i * in_stride], ys[i * in_stride],
                                    zs[i * in_stride], gx, gy, gz);
         ok_out[i] = (unsigned char)ok;
         dx_out[i * out_stride] = gx;
@@ -508,7 +647,8 @@ __device__ __forceinline__ unsigned pair_bits(const DistParams* P,
         const float x0 = vx * ca - vy * sa;
         const float y0 = vx * sa + vy * ca;
         float dx, dy, dz;
-        const bool ok = dist_point(P[A.pidx[l]], x0, y0, vz, dx, dy, dz);
+        const DistParams& P_l = P[A.pidx[l]];
+        const bool ok = dist_point(P_l, ParamSlots{P_l}, x0, y0, vz, dx, dy, dz);
         const float wx = dx * ca + dy * sa;
         const float wy = (-dx) * sa + dy * ca;
         const float wz = dz;
@@ -711,7 +851,16 @@ legmov_io_only_kernel(const float* __restrict__ xs,
 // C launchers
 // ---------------------------------------------------------------------------
 
-static int grid_for(long long n) {
+// Blocks an SM that K1's grid-stride loop is launched with (on an H100 at
+// 16,777,216 points K1 took 1.09x as long with 4, 1.03x with 8, the same
+// with 32).  K7, K1's yardstick, keeps the grid it was first measured
+// with (blocks for one thread a point, under the same cap); at 16,777,216
+// points both grids are the cap.
+#define LEGMOV_REACH_BLOCKS_PER_SM 16
+
+// Blocks of LEGMOV_BLOCK threads for `threads` threads' work, at most
+// `per_sm` an SM (a grid-stride loop takes the rest).
+static int grid_for(long long threads, int per_sm) {
     static int sms = 0;
     if (sms == 0) {
         int dev = 0;
@@ -721,25 +870,43 @@ static int grid_for(long long n) {
             sms <= 0)
             sms = 132;
     }
-    const long long want = (n + LEGMOV_BLOCK - 1) / LEGMOV_BLOCK;
-    const long long cap = (long long)sms * 16;  // grid-stride beyond this
+    const long long want = (threads + LEGMOV_BLOCK - 1) / LEGMOV_BLOCK;
+    const long long cap = (long long)sms * per_sm;
     return (int)(want < cap ? want : cap);
 }
 
+// K1's instance and I/O path come from the inputs: the six-circle instance
+// where the parameter block holds six unique circles whose interval
+// collapses are all legal (the shipped legs), the generic one (-1) for any
+// other leg; four points a thread where the inputs are SoA arrays on 16-byte
+// boundaries and the output is on a 4-byte one, the scalar loop otherwise.
 extern "C" int legmov_reachability(const float* x, const float* y,
                                    const float* z, long long in_stride,
                                    unsigned char* out, long long n,
                                    const ReachParams* params, void* stream) {
     if (n <= 0) return 0;
-    legmov_reach_kernel<<<grid_for(n), LEGMOV_BLOCK, 0, (cudaStream_t)stream>>>(
-        x, y, z, in_stride, out, n, *params);
+    const int vector =
+        in_stride == 1 &&
+        (((unsigned long long)x | (unsigned long long)y |
+          (unsigned long long)z) & 15ull) == 0 &&
+        ((unsigned long long)out & 3ull) == 0;
+    bool six = params->n_circles == 6;
+    for (int c = 0; six && c < 6; ++c) six = params->collapse[c] != 0;
+    const int grid = grid_for((n + 3) / 4, LEGMOV_REACH_BLOCKS_PER_SM);
+    cudaStream_t s = (cudaStream_t)stream;
+    if (six)
+        legmov_reach_kernel<6><<<grid, LEGMOV_BLOCK, 0, s>>>(
+            x, y, z, in_stride, out, n, vector, *params);
+    else
+        legmov_reach_kernel<-1><<<grid, LEGMOV_BLOCK, 0, s>>>(
+            x, y, z, in_stride, out, n, vector, *params);
     return (int)cudaGetLastError();
 }
 
 extern "C" int legmov_io_only(const float* x, const float* y, const float* z,
                               unsigned char* out, long long n, void* stream) {
     if (n <= 0) return 0;
-    legmov_io_only_kernel<<<grid_for(n), LEGMOV_BLOCK, 0,
+    legmov_io_only_kernel<<<grid_for(n, 16), LEGMOV_BLOCK, 0,
                             (cudaStream_t)stream>>>(x, y, z, out, n);
     return (int)cudaGetLastError();
 }
@@ -750,8 +917,9 @@ extern "C" int legmov_distance(const float* x, const float* y, const float* z,
                                long long out_stride, long long n,
                                const DistParams* params, void* stream) {
     if (n <= 0) return 0;
-    legmov_dist_kernel<<<grid_for(n), LEGMOV_BLOCK, 0, (cudaStream_t)stream>>>(
-        x, y, z, in_stride, ok, dx, dy, dz, out_stride, n, *params);
+    legmov_dist_kernel<<<grid_for(n, 16), LEGMOV_BLOCK, 0,
+                         (cudaStream_t)stream>>>(x, y, z, in_stride, ok, dx, dy,
+                                                 dz, out_stride, n, *params);
     return (int)cudaGetLastError();
 }
 

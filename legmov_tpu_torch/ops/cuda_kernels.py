@@ -273,9 +273,7 @@ def dist_flops_per_point(c: DistConsts) -> int:
     and clamped 72, cross-validation 96, circle tournament 4, corner
     tournament 3 + 6 per corner, result 3, limit plane and un-rotation 24;
     final select and un-pitch 17."""
-    nc = len(c.corners)
-    corner = 3 + 5 * nc + (nc - 1) + 1 if nc else 0
-    plane = 16 + 72 + 96 + 4 + corner + 3
+    plane = 16 + 72 + 96 + 4 + _corner_flops(c) + 3
     return 14 + 2 * (25 + 7 + plane + 24) + 17
 
 
@@ -408,10 +406,9 @@ def _coxa_frame(x, y, z, c):
     return px * c.cp - z * c.sp, y, px * c.sp + z * c.cp
 
 
-def reachability_kernel_plain(x, y, z, consts: ReachConsts) -> torch.Tensor:
-    """Plain PyTorch version of the reachability kernel: ``[N]`` float32
-    components in, ``[N]`` bool out, on the tensors' device."""
-    c = consts
+def _reach_plane(x, y, z, c: ReachConsts):
+    """K1's steps up to the plane: ``(coxa_invalid or None, xp, yp, upper,
+    ext)``."""
     x, y, z = _coxa_frame(x, y, z, c)
     flip = torch.signbit(x)
     fx = torch.where(flip, -x, x)
@@ -426,6 +423,21 @@ def reachability_kernel_plain(x, y, z, consts: ReachConsts) -> torch.Tensor:
     xp = torch.where(flip, -rho, rho) - c.coxa_length
     yp = z
     upper, ext = _region_bits(xp, yp, c)
+    return coxa_invalid, xp, yp, upper, ext
+
+
+def reach_configuration(x, y, z, consts: ReachConsts) -> torch.Tensor:
+    """K1's (upper, ext) configuration of each point, ``upper * 2 + ext``
+    as int64 ``[N]``: which masks the kernel checks."""
+    _, _, _, upper, ext = _reach_plane(x, y, z, consts)
+    return upper.long() * 2 + ext.long()
+
+
+def reachability_kernel_plain(x, y, z, consts: ReachConsts) -> torch.Tensor:
+    """Plain PyTorch version of the reachability kernel: ``[N]`` float32
+    components in, ``[N]`` bool out, on the tensors' device."""
+    c = consts
+    coxa_invalid, xp, yp, upper, ext = _reach_plane(x, y, z, c)
     # each unique circle once, both validity polarities
     q = xp * xp + yp * yp
     val_pos, val_neg = [], []
@@ -592,21 +604,36 @@ def _finish_plain(x, y, z, cos_a, sin_a, flipped, c: DistConsts):
     fz = torch.where(better, 0.0, dzp)
     gx = fx * c1 - fy * s1
     gy = fx * s1 + fy * c1
-    return was_valid & ~saturated, gx, gy, fz
+    return was_valid, saturated, gx, gy, fz
 
 
-def distance_kernel_plain(x, y, z, consts: DistConsts):
-    """Plain PyTorch version of the distance kernel: ``[N]`` float32
-    components in, ``(ok [N] bool, dx, dy, dz [N] float32)`` out."""
-    c = consts
+class _DistParts(NamedTuple):
+    ok: torch.Tensor
+    dx: torch.Tensor
+    dy: torch.Tensor
+    dz: torch.Tensor
+    #: each finish branch's plane validity (direct, pi-flipped)
+    valid_d: torch.Tensor
+    valid_f: torch.Tensor
+    #: each branch's result, ``valid & ~saturated``
+    res: torch.Tensor
+    resf: torch.Tensor
+    #: the direct branch's vector was taken
+    use_d: torch.Tensor
+
+
+def _distance_parts(x, y, z, c: DistConsts) -> _DistParts:
     x, y, z = _coxa_frame(x, y, z, c)
     rho = trig32.sqrt(x * x + y * y)
     on_axis = rho == 0
     inv = torch.where(on_axis, 1.0, rho)
     cos_a = torch.where(on_axis, 1.0, x / inv)
     sin_a = torch.where(on_axis, 0.0, y / inv)
-    res, dx, dy, dz = _finish_plain(x, y, z, cos_a, sin_a, False, c)
-    resf, fx, fy, fz = _finish_plain(x, y, z, -cos_a, -sin_a, True, c)
+    valid_d, sat_d, dx, dy, dz = _finish_plain(x, y, z, cos_a, sin_a, False, c)
+    valid_f, sat_f, fx, fy, fz = _finish_plain(x, y, z, -cos_a, -sin_a, True,
+                                               c)
+    res = valid_d & ~sat_d
+    resf = valid_f & ~sat_f
     d2d = dx * dx + dy * dy + dz * dz
     d2f = fx * fx + fy * fy + fz * fz
     use_d = torch.where(res == resf, d2d < d2f, res)
@@ -615,7 +642,86 @@ def distance_kernel_plain(x, y, z, consts: DistConsts):
     oz = torch.where(use_d, dz, fz)
     wx = ox * c.cp_inv - oz * c.sp_inv
     wz = ox * c.sp_inv + oz * c.cp_inv
-    return res | resf, wx, oy, wz
+    return _DistParts(res | resf, wx, oy, wz, valid_d, valid_f, res, resf,
+                      use_d)
+
+
+def distance_kernel_plain(x, y, z, consts: DistConsts):
+    """Plain PyTorch version of the distance kernel: ``[N]`` float32
+    components in, ``(ok [N] bool, dx, dy, dz [N] float32)`` out."""
+    p = _distance_parts(x, y, z, consts)
+    return p.ok, p.dx, p.dy, p.dz
+
+
+#: fp32 operations of one finish branch's head (four angle tests 20,
+#: rotation 7, region bits 16, four circles validated 32) and of its tail
+#: (the limit-plane angle test 5, four clamps 40, cross-validation 96,
+#: circle tournament 4, result 3, limit plane and un-rotation 24), corners
+#: apart: together dist_flops_per_point's branch
+DIST_HEAD_FLOPS = 75
+DIST_TAIL_FLOPS = 172
+
+
+def _corner_flops(c: DistConsts) -> int:
+    nc = len(c.corners)
+    return 3 + 5 * nc + (nc - 1) + 1 if nc else 0
+
+
+def dist_flops_needed(x, y, z, consts: DistConsts) -> int:
+    """fp32 operations that the distance of these points needs, counted as
+    in :func:`dist_flops_per_point`, where each point needs its frame,
+    heading, final select and both branch heads, the tail of a branch only
+    where that branch's vector is read (the two results agree or the branch
+    won), and a tail's corner tournament only for an invalid query."""
+    c = consts
+    p = _distance_parts(x, y, z, c)
+    agree = p.res == p.resf
+    corner = _corner_flops(c)
+    n = x.shape[0]
+    total = n * (14 + 17 + 2 * DIST_HEAD_FLOPS)
+    for need, valid in ((agree | p.res, p.valid_d),
+                        (agree | p.resf, p.valid_f)):
+        total += int(need.sum()) * DIST_TAIL_FLOPS
+        total += int((need & ~valid).sum()) * corner
+    return total
+
+
+def mixed_points(leg, n: int, seed: int, device="cpu") -> torch.Tensor:
+    """``[n, 3]`` float32 points, seeded, whose every 32 consecutive rows
+    mix what a warp of K1 or K2 can meet: each class of (K1's (upper, ext)
+    configuration, K1's result, K2's dual-finish winner) that a uniform
+    draw over the bench envelope (x -100..601, y -400..401, z -350..51)
+    holds for ``leg`` comes once in every run of that many rows (at most
+    16), drawn from that class in the draw's order, again from its start
+    when a class runs out."""
+    rng = np.random.default_rng(seed)
+    m = max(n, 1 << 16)
+    lo = np.array([-100.0, -400.0, -350.0], np.float32)
+    hi = np.array([601.0, 401.0, 51.0], np.float32)
+    pool = torch.from_numpy(
+        rng.uniform(lo, hi, (m, 3)).astype(np.float32)).to(device)
+    x, y, z = (pool[:, i].contiguous() for i in range(3))
+    rc = reach_consts(leg)
+    key = (reach_configuration(x, y, z, rc) * 4
+           + reachability_kernel_plain(x, y, z, rc).long() * 2
+           + _distance_parts(x, y, z, dist_consts(leg)).use_d.long())
+    counts = torch.bincount(key, minlength=16)
+    classes = torch.nonzero(counts).flatten()
+    starts = torch.cumsum(counts, 0) - counts
+    order = torch.argsort(key, stable=True)
+    i = torch.arange(n, device=pool.device)
+    cls = classes[i % classes.numel()]
+    j = torch.div(i, classes.numel(), rounding_mode="floor") % counts[cls]
+    return pool[order[starts[cls] + j]].contiguous()
+
+
+def special_rows(p: torch.Tensor) -> torch.Tensor:
+    """``p`` (``[N, 3]`` float32) with 64 seeded rows of NaN, +-inf, 0.0 and
+    -0.0 mixes in front, on ``p``'s device."""
+    vals = torch.tensor([np.nan, np.inf, -np.inf, 0.0, -0.0],
+                        dtype=torch.float32)
+    pick = torch.from_numpy(np.random.default_rng(5).integers(0, 5, (64, 3)))
+    return torch.cat([vals[pick].to(p.device), p])
 
 
 def distance_cells_plain(centers, parent_valid, footholds, legs: CellLegs,

@@ -161,3 +161,81 @@ def test_flop_counts():
         assert ck.reach_flops_per_point(ck.reach_consts(leg)) == 74
     assert ck.dist_flops_per_point(ck.dist_consts(T.get_moonbot_leg())) == 579
     assert ck.dist_flops_per_point(ck.dist_consts(T.get_m2_leg())) == 591
+
+
+# ---------------------------------------------------------------------------
+# the point kernel's parameter block, the work a set of points needs, and a
+# set that mixes configurations within every warp
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", list(LEGS))
+def test_mixed_set_matches_pallas(name):
+    """On points whose every warp meets all four configurations, valid and
+    invalid queries and both dual-finish winners, the plain version the
+    wrappers run on the CPU keeps the JAX Pallas kernel's ``ok`` (the 64
+    NaN, +-inf and -0.0 rows included) and its vectors within the contract
+    on the finite rows."""
+    j_leg, t_leg = (f() for f in LEGS[name])
+    p = ck.special_rows(ck.mixed_points(t_leg, 4096, 37)).numpy()
+    ok_p, v_p = j_make_distance_kernel(j_leg, interpret=True)(jnp.asarray(p))
+    ok_k, v_k = ck.make_distance_kernel(t_leg)(torch.from_numpy(p))
+    np.testing.assert_array_equal(ok_k.numpy(), np.asarray(ok_p))
+    assert_distance_contract(ok_k.numpy()[64:], v_k.numpy()[64:],
+                             np.asarray(ok_p)[64:], np.asarray(v_p)[64:])
+    assert np.asarray(ok_p)[64:].any() and not np.asarray(ok_p)[64:].all()
+
+
+@pytest.mark.parametrize("name", list(LEGS))
+def test_dist_params_hold_the_constants(name):
+    """The block the wrapper fills: the 16 (configuration, slot) circles at
+    ``(upper * 2 + ext) * 4 + slot``, their polarity, the live corners in
+    order with their linear forms, and the five threshold directions."""
+    c = ck.dist_consts(LEGS[name][1]())
+    p = ck.dist_params(c)
+    f32 = lambda v: float(np.float32(v))
+    for r in range(2):
+        for e in range(2):
+            for s in range(4):
+                i = (r * 2 + e) * 4 + s
+                for short in ("x", "y", "r", "r2", "hi2", "lo2"):
+                    field = {"x": "cx", "y": "cy"}.get(short, short)
+                    assert getattr(p, field)[i] == f32(c.tabs[short][r][e][s])
+                assert p.att[i] == int(c.att[r][e][s])
+    assert p.n_corners == len(c.corners)
+    for j, (pcx, pcy, ax, ay, kc) in enumerate(c.corners):
+        assert (p.corner_x[j], p.corner_y[j], p.corner_ax[j], p.corner_ay[j],
+                p.corner_k[j]) == tuple(f32(v) for v in (pcx, pcy, ax, ay, kc))
+    for k, d in enumerate(c.dirs):
+        assert (p.dir_c[k], p.dir_s[k], p.dir_neg[k]) == (f32(d.c), f32(d.s),
+                                                         int(d.neg))
+    assert (p.margin2, p.big) == (f32(c.margin2), f32(c.big))
+
+
+def test_flops_needed_count_what_each_point_reads():
+    """A point needs both branches' heads, the tail of each branch whose
+    vector is read (both where the results agree, the winner's alone where
+    they differ), and a tail's corners only for an invalid query: a far
+    point all of it (dist_flops_per_point), a reachable point with one
+    valid branch one tail and no corners."""
+    leg = T.get_m2_leg()
+    c = ck.dist_consts(leg)
+    full = ck.dist_flops_per_point(c)
+    head = 14 + 17 + 2 * ck.DIST_HEAD_FLOPS
+    corner = full - head - 2 * ck.DIST_TAIL_FLOPS
+    assert corner > 0 and corner % 2 == 0
+    far = torch.tensor([[5e4, 0.0, 0.0]])
+    assert ck.dist_flops_needed(*far.T.contiguous(), c) == full
+    p = ck.mixed_points(leg, 4096, 41)
+    x, y, z = (p[:, i].contiguous() for i in range(3))
+    parts = ck._distance_parts(x, y, z, c)
+    one = torch.nonzero(parts.res != parts.resf).flatten()
+    assert one.numel() > 0
+    i = int(one[0])
+    assert ck.dist_flops_needed(x[i:i + 1], y[i:i + 1], z[i:i + 1], c) == (
+        head + ck.DIST_TAIL_FLOPS)
+    # the count is a sum over the points, and never above the full count
+    total = ck.dist_flops_needed(x, y, z, c)
+    assert total == sum(ck.dist_flops_needed(x[k:k + 512], y[k:k + 512],
+                                             z[k:k + 512], c)
+                        for k in range(0, 4096, 512))
+    assert head * 4096 < total < full * 4096

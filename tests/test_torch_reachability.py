@@ -9,6 +9,10 @@ version of the port's CUDA kernel (which the wrappers run for CPU tensors)
 and the port's scalar oracle.
 """
 
+import ctypes
+import os
+import re
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -143,3 +147,126 @@ def test_wrapper_rejects_bad_inputs(pts):
         kr.soa(t[:, 0], t[:100, 1], t[:, 2])
     with pytest.raises(ValueError):
         kr.soa(t[:, 0], t[:, 1].contiguous(), t[:, 2])  # strides 3, 1, 3
+
+
+# ---------------------------------------------------------------------------
+# the parameter block, its interval collapses, and a set of
+# points that mixes the configurations within every warp
+# ---------------------------------------------------------------------------
+
+SOURCE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "legmov_tpu_torch", "csrc", "leg_kernels.cu")
+
+
+def _source():
+    with open(SOURCE) as f:
+        return f.read()
+
+
+@pytest.mark.parametrize("name", list(LEGS))
+def test_mixed_set_matches_pallas(name):
+    """On points whose every warp meets all four (upper, ext)
+    configurations, valid and invalid queries (and NaN, +-inf, -0.0 rows),
+    the plain version the wrappers run on the CPU equals the JAX Pallas
+    kernel in interpret mode."""
+    j_leg, t_leg = (f() for f in LEGS[name])
+    p = ck.special_rows(ck.mixed_points(t_leg, 4096, 29)).numpy()
+    want = np.asarray(
+        j_make_reachability_kernel(j_leg, interpret=True)(jnp.asarray(p)))
+    got = ck.make_reachability_kernel(t_leg)(torch.from_numpy(p))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert want[64:].any() and not want[64:].all()
+
+
+@pytest.mark.parametrize("name", list(LEGS))
+def test_mixed_set_mixes_every_warp(name):
+    """Every 32 consecutive points of ``mixed_points`` span K1's four
+    configurations, valid and invalid queries and both of K2's dual-finish
+    winners; the set is the same for a seed and another for another."""
+    _, t_leg = (f() for f in LEGS[name])
+    p = ck.mixed_points(t_leg, 2048, 31)
+    assert p.shape == (2048, 3) and p.dtype == torch.float32
+    x, y, z = (p[:, i].contiguous() for i in range(3))
+    cfg = ck.reach_configuration(x, y, z, ck.reach_consts(t_leg))
+    valid = ck.reachability_kernel_plain(x, y, z, ck.reach_consts(t_leg))
+    use_d = ck._distance_parts(x, y, z, ck.dist_consts(t_leg)).use_d
+    for lo in range(0, 2048 - 32 + 1, 7):
+        w = slice(lo, lo + 32)
+        assert set(cfg[w].tolist()) == {0, 1, 2, 3}
+        assert valid[w].any() and (~valid[w]).any()
+        assert use_d[w].any() and (~use_d[w]).any()
+    assert torch.equal(p, ck.mixed_points(t_leg, 2048, 31))
+    assert not torch.equal(p, ck.mixed_points(t_leg, 2048, 32))
+
+
+@pytest.mark.parametrize("cleared", ["first", "all"])
+@pytest.mark.parametrize("name", list(LEGS))
+def test_collapse_cleared_gives_the_same_bits(name, cleared):
+    """A parameter block with interval collapses cleared sends K1 to its
+    generic instance, which then runs the full interval test for those
+    circles; on the shipped legs, whose collapses are legal, the plain
+    version gives the same booleans that way (NaN, +-inf and -0.0 rows
+    included), which is what the card holds the generic instance to."""
+    _, t_leg = (f() for f in LEGS[name])
+    c = ck.reach_consts(t_leg)
+    assert len(c.circles) == 6 and all(c.collapse)
+    off = ((False,) + c.collapse[1:] if cleared == "first"
+           else (False,) * len(c.collapse))
+    p = ck.special_rows(ck.mixed_points(t_leg, 4096, 41))
+    x, y, z = (p[:, i].contiguous() for i in range(3))
+    want = ck.reachability_kernel_plain(x, y, z, c)
+    got = ck.reachability_kernel_plain(x, y, z, c._replace(collapse=off))
+    assert torch.equal(got, want)
+    assert want[64:].any() and not want[64:].all()
+    rp = ck.reach_params(c._replace(collapse=off))
+    assert list(rp.collapse[:6]) == [int(v) for v in off]
+
+
+def _c_struct_bytes(src, name):
+    """Bytes of ``struct name`` in the source: every member is 4 bytes,
+    arrays sized by literals or the source's #defines."""
+    defines = dict(re.findall(r"#define (\w+) (\d+)", src))
+    body = re.search(r"struct " + name + r" \{(.*?)\n\};", src, re.S).group(1)
+    words = 0
+    for decl in re.sub(r"//[^\n]*", "", body).split(";"):
+        decl = " ".join(decl.split())
+        if not decl:
+            continue
+        typ, names = decl.split(" ", 1)
+        assert typ in ("float", "int", "unsigned"), decl
+        for member in names.split(","):
+            dims = re.findall(r"\[(\w+)\]", member)
+            words += int(np.prod([int(defines.get(d, d)) for d in dims]))
+    return 4 * words
+
+
+def test_parameter_blocks_mirror_the_c_structs():
+    src = _source()
+    for name, block in (("ReachParams", ck._ReachParams),
+                        ("DistParams", ck._DistParams)):
+        assert ctypes.sizeof(block) == _c_struct_bytes(src, name)
+
+
+@pytest.mark.parametrize("name", list(LEGS))
+def test_reach_params_hold_the_constants(name):
+    """The block the wrapper fills: each unique circle's linear form and
+    collapse, and per configuration the circles its four slots test
+    attractively and repulsively."""
+    c = ck.reach_consts(LEGS[name][1]())
+    p = ck.reach_params(c)
+    assert (p.body, p.cp, p.sp, p.coxa_length) == (c.body, c.cp, c.sp,
+                                                   c.coxa_length)
+    assert p.n_circles == len(c.circles)
+    for i, (ax, ay, r2k, hi2k, lo2k) in enumerate(c.circles):
+        got = (p.ax[i], p.ay[i], p.r2k[i], p.hi2k[i], p.lo2k[i])
+        assert got == tuple(float(np.float32(v))
+                            for v in (ax, ay, r2k, hi2k, lo2k))
+        assert p.collapse[i] == int(c.collapse[i])
+    for r in range(2):
+        for e in range(2):
+            slots = c.slot_map[r][e]
+            pos = sum(1 << ci for ci, a in slots if a)
+            neg = sum(1 << ci for ci, a in slots if not a)
+            assert (p.pos_mask[r * 2 + e], p.neg_mask[r * 2 + e]) == (pos, neg)
+    assert p.mid_neg == int(c.mid.neg)
+    assert [p.sat_neg[i] for i in range(2)] == [int(s.neg) for s in c.sat]
