@@ -32,17 +32,21 @@ against their plain versions (ragged shapes, legs found before the launch,
 rows found on their first candidates), their times, and the round kernel's
 time on every round of phase 6's chunk beside each round's bound; 8 ``cli solve`` on the
 prepared directory (the depth-7 moon solve under both rules, the chunk-major
-per-leg evaluator on a batch of it, two hexapod solves, and reduced solves
+per-leg evaluator (K6c) on a batch of it, and K6c's flags against K6a's
+on every batch of the per-leg solve's deepest level with the two timed in
+turns over all of them, two hexapod solves, and reduced solves
 whose CSR and dense candidates and whose environment switches must agree;
 the deep solves' identity levels run one K2 cell-kernel launch a batch, read
 the device nowhere in their dispatch, and print their ``dispatch_s``);
 9 the gates of the solve on samples of real batches of its deepest level,
 quadruped and hexapod (every cell kernel form against its plain version,
 counters included, against the dense item kernel and against the eager
-evaluator); 10 the item kernel, its cell driver (special batches, phase 10's
+evaluator; K6c against its plain version on the whole per-leg batch);
+10 the item kernel, its cell driver (special batches, phase 10's
 batch and the largest batch of each dense solve of phase 8, each timed in
 turns with the item kernel's chunk loop that it replaced) and the three cell
-kernels alone: special values, and their times on real batches;
+kernels alone: special values (K6c also over 54 orientations), and their
+times on real batches;
 11 K2's cell kernel on real batches of identity levels 2-6 of the deep
 solves and on special ones: against its plain version and against the
 eager loop with K2's point kernel that it replaced, bit for bit, and its
@@ -62,7 +66,9 @@ level's batches.
 phase 8's deep solves to a quarter of the box, for a first look at a new
 kernel; ``--against`` (an earlier ``cell_kernels.cu``, phase 10) and
 ``--against-multileg`` (an earlier ``multileg_kernels.cu``, phases 5 and 7)
-time another build's kernels in turns with this tree's on the same inputs;
+time another build's kernels in turns with this tree's on the same inputs
+(K6c's walk and counters differ from earlier builds': against one, its three
+flag words are compared, the other kernels' ten words);
 ``--against-leg`` (an earlier ``leg_kernels.cu``, with nvcc flags if any)
 does so for K1 and K2 in phases 4, 11 and 12, and phase 3 holds that
 build's K1 and K2 outputs to this tree's bit for bit.
@@ -2203,6 +2209,7 @@ def run_solve(data, *extra, capture=None, show_levels=False,
 
     def keep_call(real, *a, **kw):
         kept.setdefault("kernel_args", a)
+        kept.setdefault("kernel_calls", []).append(a)
         return real(*a, **kw)
 
     words = {name: [] for name in CELL_WRAPPERS}
@@ -2418,6 +2425,9 @@ def phase_cli_solve(data, quick):
               f"{mode}: no cell-kernel batch captured")
         out[mode] = dict(record=rec, kernel_args=kept["kernel_args"],
                          queue_args=kept["queue_args"])
+        if mode == "per-leg":
+            out[mode]["kernel_calls"] = kept["kernel_calls"]
+            out[mode]["levels"] = kept["stats"]["per_level"]
         out["launches"][key] = la[key]
         out["launches"].setdefault("distance_cells", la["distance_cells"])
         out["seconds"][mode] = line["seconds"]
@@ -2471,6 +2481,7 @@ def phase_cli_solve(data, quick):
         f"cells, valid {int(got[0].sum())} edge {int(got[1].sum())} leaf "
         f"{int(got[2].sum())}, equal to the quat-major form's; {dt:.3f} s, "
         f"launches K6c {out['launches']['cell_cm_perleg']}")
+    out["cm_every_batch"] = cm_every_batch(out["per-leg"])
     # the shared rule on the hexapod: 4 of 6 legs on one foothold (no cell
     # of this terrain is valid under it: legs mounted 60 degrees apart do not
     # meet on one foothold four at a time), and 3 of 6
@@ -2534,16 +2545,118 @@ def phase_cli_solve(data, quick):
     return out
 
 
-def unpack_batch(solve, mode):
-    """The captured first batch of the deepest level of ``mode``'s solve."""
-    k_args = solve[mode]["kernel_args"]
-    (centers, elong, rmounts, reach_l, r_cell, starts, origin), q_kw = \
-        solve[mode]["queue_args"]
+def batch_of(k_args):
+    """A captured cell-kernel call's arguments as a batch."""
     queue, cellinfo, legtab, xs, ys, zs, consts, k = k_args[:8]
     # cell_eval_quat_major takes `shared` before `window`
     window = k_args[9] if isinstance(k_args[8], bool) else k_args[8]
     return dict(queue=queue, cellinfo=cellinfo, legtab=legtab, xs=xs, ys=ys,
-                zs=zs, consts=consts, k=k, window=window, centers=centers,
+                zs=zs, consts=consts, k=k, window=window)
+
+
+def perleg_flags(words, cellinfo):
+    """The three flag words of a per-leg cell kernel as its caller reads
+    them: valid with parent-valid ORed in, edge, and the leaf word (0).
+    The walks stop at different points, so a kernel's own valid word may
+    leave out a cell whose parent is valid."""
+    return torch.stack([(words[:, 0] > 0) | (cellinfo[:, 3] > 0.5),
+                        words[:, 1] > 0, words[:, 2] > 0])
+
+
+def cm_every_batch(run):
+    """K6c against K6a on every batch that K6a evaluated in the per-leg
+    solve (its deepest level), through the C launchers: the flags as the
+    caller reads them, then the summed kernel time of all the batches in
+    turns (K6a, K6c, K6c, K6a, after one warm-up pass each), beside the
+    summed bound of each walk."""
+    lib = cmd.library()
+    calls = run["kernel_calls"]
+    rot = [lv for lv in run["levels"] if lv["rot"]]
+    bs = [batch_of(a) for a in calls]
+    params = [cmd.item_params(b["consts"], b["k"]) for b in bs]
+    words = {form: [torch.zeros((b["queue"].role.shape[0], cmd.OUT_WORDS),
+                                dtype=torch.int32, device=DEV) for b in bs]
+             for form in ("quat_major", "cm_perleg")}
+
+    def one(form):
+        """ms of each batch, one pass"""
+        torch.cuda.synchronize()
+        evs = []
+        for b, p, o in zip(bs, params, words[form]):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            cells_call(lib, form, b["queue"], b, p, out=o)
+            e1.record()
+            evs.append((e0, e1))
+        torch.cuda.synchronize()
+        return [a.elapsed_time(z) for a, z in evs]
+
+    one("quat_major")
+    one("cm_perleg")
+    bad = sum(int((perleg_flags(a, b["cellinfo"])
+                   != perleg_flags(c, b["cellinfo"])).sum())
+              for a, c, b in zip(words["quat_major"], words["cm_perleg"], bs))
+    cells = sum(b["queue"].role.shape[0] for b in bs)
+    check(len(bs) == sum(lv["batches"] for lv in rot),
+          f"{len(bs)} K6a batches captured, the orientation-active levels "
+          f"ran {sum(lv['batches'] for lv in rot)}")
+    check(bad == 0, f"K6c's flags differ from K6a's on {bad} of the per-leg "
+          "solve's deepest-level flags")
+    per = [one("quat_major"), one("cm_perleg"), one("cm_perleg"),
+           one("quat_major")]
+    t = [sum(x) for x in per]
+    bounds = {form: [cell_bound(w, *b["queue"].role.shape,
+                                b["legtab"].numel())[0]
+                     for w, b in zip(words[form], bs)]
+              for form in words}
+    bound = {form: sum(v) for form, v in bounds.items()}
+    ratio = (t[1] + t[2]) / (t[0] + t[3])
+    first = [x[0] for x in per]
+    # where the work goes: the leg pipelines on elements inside the box
+    # (word 9) of the cells whose parent is valid (edge is their only open
+    # flag) and of the others
+    split = {form: [0, 0] for form in words}
+    n_pv = 0
+    for i, b in enumerate(bs):
+        pv = b["cellinfo"][:, 3] > 0.5
+        n_pv += int(pv.sum())
+        for form in words:
+            w = words[form][i][:, 9].to(torch.int64)
+            split[form][0] += int(w[pv].sum())
+            split[form][1] += int(w[~pv].sum())
+    say(f"  K6c against K6a on every batch K6a ran in the per-leg solve "
+        f"({len(bs)} batches, {cells} cells, orientation-active depths "
+        f"{[lv['depth'] for lv in rot]}): flags as the caller reads them "
+        f"equal, mismatches {bad}; summed kernel ms in turns (K6a, K6c, "
+        f"K6c, K6a): {t[0]:.3f}, {t[1]:.3f}, {t[2]:.3f}, {t[3]:.3f}; K6c / "
+        f"K6a {ratio:.3f}; summed bound K6a {bound['quat_major']:.3f} ms, "
+        f"K6c {bound['cm_perleg']:.3f} ms (its own walk); the first batch "
+        f"({bs[0]['queue'].role.shape[0]} cells) in those turns: "
+        + ", ".join(f"{x:.3f}" for x in first)
+        + f" ms, K6c / K6a {(first[1] + first[2]) / (first[0] + first[3]):.3f},"
+        f" bounds K6a {bounds['quat_major'][0]:.4f} ms, K6c "
+        f"{bounds['cm_perleg'][0]:.4f} ms; leg pipelines inside the box, "
+        f"K6a / K6c: {n_pv} cells with a valid parent "
+        f"{split['quat_major'][0]} / {split['cm_perleg'][0]}, the other "
+        f"{cells - n_pv} {split['quat_major'][1]} / "
+        f"{split['cm_perleg'][1]}")
+    return {"batches": len(bs), "cells": cells, "k6a_ms": [t[0], t[3]],
+            "k6c_ms": [t[1], t[2]], "k6c_over_k6a": ratio,
+            "k6a_bound_ms": bound["quat_major"],
+            "k6c_bound_ms": bound["cm_perleg"],
+            "first_batch_ms_in_turns": first,
+            "first_batch_bounds_ms": [bounds["quat_major"][0],
+                                      bounds["cm_perleg"][0]],
+            "cells_parent_valid": n_pv,
+            "pipelines_k6a_k6c": [split["quat_major"], split["cm_perleg"]]}
+
+
+def unpack_batch(solve, mode):
+    """The captured first batch of the deepest level of ``mode``'s solve."""
+    (centers, elong, rmounts, reach_l, r_cell, starts, origin), q_kw = \
+        solve[mode]["queue_args"]
+    return dict(batch_of(solve[mode]["kernel_args"]), centers=centers,
                 elong=elong, rmounts=rmounts, reach_l=reach_l, r_cell=r_cell,
                 starts=starts, origin=origin, q_kw=q_kw)
 
@@ -2602,7 +2715,11 @@ def phase_solve_gates(solve, terrain):
             return torch.stack([v, e, l]), counts, a.elapsed_time(z), ev.form
 
         base = None
-        for chunk_major in (shared, not shared):  # the rule's own form first
+        # the rule's own form first; the quadruped's K6c is held to its plain
+        # version on the whole batch below, and to K6a on every batch of the
+        # solve in phase 8
+        for chunk_major in ((shared, not shared) if mode != "per-leg"
+                            else (False,)):
             got, cnt, ms, form = flags(chunk_major, plain=False)
             want, cnt_p, ms_p, _ = flags(chunk_major, plain=True)
             bad = int((got != want).sum()) + int((cnt != cnt_p).sum())
@@ -2649,7 +2766,35 @@ def phase_solve_gates(solve, terrain):
             f"kernel (and its plain version) over {fh.shape[0]} footholds: "
             f"same flags; eager _eval_cells on {EAGER_CELLS} of the cells: "
             f"same flags")
+    out["cm_whole"] = cm_whole_batch(unpack_batch(solve, "per-leg"))
     return out
+
+
+CM_SLICE = 32768  # cells a call of K6c's plain version takes on the card
+
+
+def cm_whole_batch(b):
+    """K6c against its plain version on all ten words of every cell of the
+    captured per-leg batch; the plain version takes the batch in slices of
+    cells (a cell's words do not depend on the other cells)."""
+    q, ci = b["queue"], b["cellinfo"]
+    C = q.role.shape[0]
+    tail = (b["legtab"], b["xs"], b["ys"], b["zs"], b["consts"], b["k"])
+    got = cce.cell_eval_cm_perleg(q, ci, *tail, b["window"])
+    t0 = time.perf_counter()
+    want = torch.cat([cce.cell_eval_cm_perleg_plain(
+        cce.CellQueue(q.cst[s], q.cln[s], q.role[s], q.tot[s], q.over),
+        ci[s], *tail) for s in (slice(lo, lo + CM_SLICE)
+                                for lo in range(0, C, CM_SLICE))])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    bad = int((got != want).sum())
+    say(f"  K6c on the whole per-leg batch ({C} cells) against its plain "
+        f"version on all ten words: mismatches {bad}; the plain version "
+        f"{dt:.1f} s in slices of {CM_SLICE} cells")
+    check(bad == 0, f"K6c: {bad} mismatching words against its plain "
+          "version on the whole per-leg batch")
+    return {"cells": C, "mismatches": bad, "plain_s": dt}
 
 
 def bound_of(n_bytes, n_ops):
@@ -2798,6 +2943,8 @@ def phase_cell_kernels(solve, gates, terrain, others=()):
                              torch.zeros_like(qs.tot), q.over)
         bad += int(kern(dead, small, b["xs"]).abs().sum())
         bad += int(plain(dead, small, b["xs"]).abs().sum())
+        if form == "cm_perleg":
+            bad += cm_wide(qs, small, kern, plain, xs_bad)
         res = kern(q, b, b["xs"])
         cnt = res[:, 3:].sum(dim=0, dtype=torch.int64).tolist()
         say(f"  {name} ({form}) on {few.numel()} cells with NaN/inf/1e9 "
@@ -2823,16 +2970,23 @@ def phase_cell_kernels(solve, gates, terrain, others=()):
             f"{b['window']}): chunks {cnt[0]}, (chunk, orientation) items "
             f"{cnt[1]}, leg pipelines {cnt[2]}; elements {cnt[3]} / {cnt[4]} "
             f"/ {cnt[5]}, leg pipelines on elements inside the box {cnt[6]}")
+        if (form, mode) in gates["plain_ms"]:
+            plain_ms, plain_cells = gates["plain_ms"][form, mode], GATE_CELLS
+            sample = (f"on {GATE_CELLS} cells with the queue build: kernel "
+                      f"{gates['sample_ms'][form, mode]:.2f} ms, plain "
+                      f"version {plain_ms:.1f} ms")
+        else:  # K6c: its plain version on the whole batch (phase 9)
+            plain_ms = gates["cm_whole"]["plain_s"] * 1e3
+            plain_cells = gates["cm_whole"]["cells"]
+            sample = f"plain version on the batch {plain_ms:.1f} ms"
         say(f"  {name} {ms:.4f} ms  bound {bd:.4f} ms ({by}; bytes "
             f"{t_b:.4f}, operations {t_o:.4f})  share of bound "
-            f"{bd / ms:.3f}; queue build of the batch {ms_q:.2f} ms; on "
-            f"{GATE_CELLS} cells with the queue build: kernel "
-            f"{gates['sample_ms'][form, mode]:.2f} ms, plain version "
-            f"{gates['plain_ms'][form, mode]:.1f} ms")
+            f"{bd / ms:.3f}; queue build of the batch {ms_q:.2f} ms; "
+            + sample)
         rows_out[name] = {
             "max_abs_err": float(min(bad, 1)), "n": cnt[6], "ms": ms,
-            "plain_ms": gates["plain_ms"][form, mode],
-            "plain_cells": GATE_CELLS, "cells": C, "bound_ms": bd,
+            "plain_ms": plain_ms, "plain_cells": plain_cells, "cells": C,
+            "bound_ms": bd,
             "bound_by": by, "queue_build_ms": ms_q,
             "work_max_over_mean": float(per_cell.max()) / max(mean, 1e-9)}
 
@@ -2846,6 +3000,28 @@ def phase_cell_kernels(solve, gates, terrain, others=()):
             compare_builds(label, lib, cmd.library(), batches, k5_in,
                            k5c_in)
     return rows_out
+
+
+def cm_wide(qs, small, kern, plain, xs):
+    """K6c over 54 orientations (the level's 27 twice over: a lane keeps
+    orientations q and q + 32): the flags of the 27, and the plain
+    version's ten words on 8 of the cells.  Returns the mismatches."""
+    wide = cce.CellQueue(qs.cst, qs.cln,
+                         torch.cat([qs.role, qs.role], dim=2).contiguous(),
+                         qs.tot, qs.over)
+    b2 = dict(small, legtab=torch.cat([small["legtab"]] * 2).contiguous())
+    ci = small["cellinfo"]
+    bad = int((perleg_flags(kern(wide, b2, xs), ci)
+               != perleg_flags(kern(qs, small, xs), ci)).sum())
+    e = slice(0, 8)
+    q8 = cce.CellQueue(*(t[e].contiguous() for t in wide[:4]), wide.over)
+    b8 = dict(b2, cellinfo=ci[e].contiguous())
+    bad += int((kern(q8, b8, xs) != plain(q8, b8, xs)).sum())
+    say(f"  cell_cm_perleg over {wide.role.shape[2]} orientations: flags "
+        f"equal to the {qs.role.shape[2]} orientations' on {ci.shape[0]} "
+        f"cells, ten words equal to the plain version's on 8: mismatches "
+        f"{bad}")
+    return bad
 
 
 def form_before(c, p, f, lt, consts, k, shared, params):
@@ -3128,10 +3304,12 @@ def alternatives(sources, bind, flags=None):
     return out
 
 
-def cells_call(lib, form, q, b, params, shared=False):
-    """One launch of a cell kernel of ``lib`` on a captured batch."""
+def cells_call(lib, form, q, b, params, shared=False, out=None):
+    """One launch of a cell kernel of ``lib`` on a captured batch (into
+    ``out`` when given: every cell's words are written)."""
     C, CH, S = q.role.shape
-    out = torch.zeros((C, cmd.OUT_WORDS), dtype=torch.int32, device=DEV)
+    if out is None:
+        out = torch.zeros((C, cmd.OUT_WORDS), dtype=torch.int32, device=DEV)
     ptrs = [t.data_ptr() for t in (q.cst, q.cln, q.role, q.tot, b["cellinfo"],
                                    b["legtab"], b["xs"], b["ys"], b["zs"],
                                    out)]
@@ -3196,14 +3374,22 @@ def compare_builds(label, lib, here, batches, k5_in, k5c_in):
             params = cmd.item_params(b["consts"], b["k"])
             other = lambda: cells_call(lib, form, q, b, params, extra)
             this = lambda: cells_call(here, form, q, b, params, extra)
-        check(torch.equal(other(), this()),
-              f"{label}: {kid} gives other words than this build's")
+        if form == "cm_perleg":
+            # the walk and its counters change by design: the flags only
+            ci = batches[mode]["cellinfo"]
+            check(torch.equal(perleg_flags(other(), ci),
+                              perleg_flags(this(), ci)),
+                  f"{label}: {kid} gives other flags than this build's")
+        else:
+            check(torch.equal(other(), this()),
+                  f"{label}: {kid} gives other words than this build's")
         reps = 5 if form == "cm_perleg" else 20
         t = [time_cuda(other, warmup=1, reps=reps),
              time_cuda(this, warmup=1, reps=reps),
              time_cuda(this, warmup=1, reps=reps),
              time_cuda(other, warmup=1, reps=reps)]
-        say(f"  {kid}: equal words; ms in turns: other {t[0]:.4f}, this "
+        say(f"  {kid}: equal {'flags' if form == 'cm_perleg' else 'words'}; "
+            f"ms in turns: other {t[0]:.4f}, this "
             f"{t[1]:.4f}, this {t[2]:.4f}, other {t[3]:.4f}; other / this "
             f"{(t[0] + t[3]) / (t[1] + t[2]):.3f}")
 
@@ -3619,6 +3805,7 @@ def main(argv=None):
         ident_rows, ident_bad = phase_identity_cells(solve, leg_others)
         took(11)
     solve_launches_ = solve["launches"] if solve else None
+    cm_turns = solve["cm_every_batch"] if solve else None
     solve = None
     torch.cuda.empty_cache()
     if 6 in on:
@@ -3763,7 +3950,9 @@ def main(argv=None):
                    solve_launches_["cell_shared"], **on_paths("cell_shared")),
         cell_entry("legmov_cell_cm_perleg_kernel", "cell_cm_perleg",
                    "legmov_tpu/ops/csr_cell_eval.py:1166",
-                   solve_launches_["cell_cm_perleg"]),
+                   solve_launches_["cell_cm_perleg"],
+                   per_leg_solve_in_turns=cm_turns,
+                   whole_batch_against_plain=gates["cm_whole"]),
         io_entry,
     ]}))
     say(json.dumps({"ok": True, "device": {

@@ -27,9 +27,8 @@
 // validity_child item (several_leg_octree.cu:19-151), one body over either
 // layout; K5 runs it over dense candidates (the item form over candidate
 // rows, the cell driver over a batch's footholds), K6a/K6b/K6c over per-cell
-// queues of CSR chunks.  K5, K6a and K6b inline the item, so no call saves
-// live registers around each leg (out of line they ran 10-20 % slower); K6c
-// calls it out of line, which is faster there.
+// queues of CSR chunks.  Every kernel inlines the item, so no call saves
+// live registers around each leg (out of line it ran 10-20 % slower).
 
 #include <cuda_runtime.h>
 
@@ -39,7 +38,6 @@
 #define CK_LEG_BLOCK 151   // floats per leg in a table row
 #define CK_MAX_W 1024      // table floats for six legs, padded to 128
 #define CK_BLOCK 256
-#define CK_WARPS (CK_BLOCK / 32)
 #define CK_OUT_WORDS 10    // valid, edge, leaf, 3 work counters, 4 element counters
 #define CK_MAX_QUATS 64
 #define CK_MAX_WINDOW 40960  // K6b keeps one byte per candidate of a chunk
@@ -80,6 +78,8 @@
 #define CK_KL_LEG 224
 #define CK_KW(L) (CK_HDR + (L) * CK_KL_LEG)
 #define CK_MAX_KW CK_KW(CK_MAX_LEGS)
+// a row as the table holds it, rounded up to 16 bytes
+#define CK_TW(L) ((CK_HDR + (L) * CK_LEG_BLOCK + 3) / 4 * 4)
 
 // mirrored field for field by ctypes.Structure in ops/cuda_multileg_dist.py;
 // every member is 4 bytes wide, so there is no padding
@@ -480,38 +480,6 @@ __device__ __forceinline__ unsigned item_leg(const ItemParams& P, int l,
     const bool cross_small = dv2 < T[11];
     const bool crossed = (T[12] > 0.5f) ? cross_big : cross_small;
     return (ok ? 1u : 0u) | (crossed ? 2u : 0u);
-}
-
-// item_leg out of line: the call keeps the leg's registers out of the
-// caller's count.  K6c calls it so, on the table's own layout.
-__device__ __noinline__ unsigned item_leg_call(const ItemParams& P, int l,
-                                               const float* T, float vx,
-                                               float vy, float vz) {
-    return item_leg<TableRow>(P, l, T, vx, vy, vz);
-}
-
-// bitwise OR of `v` over the block; every thread gets the result
-__device__ __forceinline__ unsigned block_or(unsigned v, unsigned* red) {
-    v = __reduce_or_sync(0xffffffffu, v);
-    if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-    __syncthreads();
-    unsigned r = 0u;
-#pragma unroll
-    for (int i = 0; i < CK_WARPS; ++i) r |= red[i];
-    __syncthreads();
-    return r;
-}
-
-// sum of `v` over the block; every thread gets the result
-__device__ __forceinline__ int block_sum(int v, unsigned* red) {
-    const unsigned w = __reduce_add_sync(0xffffffffu, (unsigned)v);
-    if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = w;
-    __syncthreads();
-    unsigned r = 0u;
-#pragma unroll
-    for (int i = 0; i < CK_WARPS; ++i) r += red[i];
-    __syncthreads();
-    return (int)r;
 }
 
 // ---------------------------------------------------------------------------
@@ -934,12 +902,12 @@ legmov_item_cells_shared_kernel(IC_ARGS) {
 // cell-sorted foothold arrays from element `cst[ch]`, and carries one role
 // byte per orientation: bits 0-5 the legs whose inflated reach ball meets the
 // chunk's box, bit 6 (V) a shared-valid item is possible there, bit 7 (E) an
-// edge item is possible.  One walker walks one cell's queue (a warp in K6a
-// and K6b, a block in K6c), so every skip decision is uniform across it; the
-// running flags live identically in each of its threads (they only change by
-// ORs over the walker).  The orientation's table row is staged in shared
-// memory when an orientation is first evaluated, with the cell centre and
-// parent-valid written over header slots 4-7.
+// edge item is possible.  One warp walks one cell's queue, so every skip
+// decision is uniform across it; the running flags live identically in each
+// of its lanes (they only change by votes over the warp).  The orientation's
+// table row is staged in shared memory when an orientation is evaluated,
+// with the cell centre written over header slots 4-6 (and, in K6a and K6b,
+// parent-valid over slot 7).
 //
 // Each kernel writes ten words a cell: valid, edge, leaf (leaf only under
 // the shared rule; parent-valid is ORed into valid by the caller under the
@@ -949,21 +917,8 @@ legmov_item_cells_shared_kernel(IC_ARGS) {
 // only ones that cost more than the head).
 // ---------------------------------------------------------------------------
 
-// orientation q's row of the level's [S, W] table as the table holds it,
-// staged by the block
-__device__ __forceinline__ void stage_row(float* T, const float* legtab, int q,
-                                          int W, const float* cell, bool pv) {
-    __syncthreads();  // nobody still reads the previous row
-    for (int i = threadIdx.x; i < W; i += blockDim.x) {
-        float v = legtab[(long long)q * W + i];
-        if (i >= 4 && i < 7) v = cell[i - 4];
-        if (i == 7) v = pv ? 1.0f : 0.0f;
-        T[i] = v;
-    }
-    __syncthreads();
-}
-
-// the same in the kernels' layout, staged by one warp for itself
+// orientation q's row of the level's [S, W] table in the kernels' layout,
+// staged by one warp for itself, with the cell centre and parent-valid
 __device__ __forceinline__ void stage_row_warp(float* T, const ItemParams& P,
                                                const float* legtab, int q,
                                                const float* cell, bool pv,
@@ -971,6 +926,20 @@ __device__ __forceinline__ void stage_row_warp(float* T, const ItemParams& P,
     __syncwarp();  // no lane still reads the previous row
     stage_entries(T, legtab + (long long)q * P.table_width, CK_KW(P.n_legs),
                   lane, 32, cell, pv);
+    __syncwarp();
+}
+
+// the first n floats of a table row as the table holds it, with the cell
+// centre over header slots 4-6, staged by one warp for itself
+__device__ __forceinline__ void stage_table_row_warp(float* T, const float* row,
+                                                     int n, const float* cell,
+                                                     int lane) {
+    __syncwarp();  // no lane still reads the previous row
+    for (int i = lane; i < n; i += 32) {
+        float v = row[i];
+        if (i >= 4 && i < 7) v = cell[i - 4];
+        T[i] = v;
+    }
     __syncwarp();
 }
 
@@ -984,33 +953,6 @@ __device__ __forceinline__ void write_out(int* out, long long cell, int v,
         o[2] = lf;
         for (int i = 0; i < 7; ++i) o[3 + i] = a[i];
     }
-}
-
-// per-leg run bits of one chunk under one orientation: bit l any ok, L + l
-// any ok & !crossed, 2L + l any ok | crossed, over the masked legs; `work`
-// gains the leg pipelines this thread ran
-__device__ __forceinline__ unsigned chunk_leg_bits(
-    const ItemParams& P, const float* T, unsigned m, const float* xs,
-    const float* ys, const float* zs, long long start, int len, int& work) {
-    const int L = P.n_legs;
-    const int legs = __popc(m);
-    unsigned bits = 0u;
-    for (int c = threadIdx.x; c < len; c += blockDim.x) {
-        float vx, vy, vz;
-        if (!item_head(T, xs[start + c], ys[start + c], zs[start + c], vx, vy,
-                       vz))
-            continue;
-        work += legs;
-        for (int l = 0; l < L; ++l) {
-            if (!((m >> l) & 1u)) continue;
-            const unsigned r = item_leg_call(P, l, T, vx, vy, vz);
-            const bool ok = r & 1u, crossed = (r >> 1) & 1u;
-            bits |= (ok ? 1u : 0u) << l;
-            bits |= ((ok & !crossed) ? 1u : 0u) << (L + l);
-            bits |= ((ok | crossed) ? 1u : 0u) << (2 * L + l);
-        }
-    }
-    return bits;
 }
 
 // Full warps through the leg pipeline.  The warp scans elements [0, len) of
@@ -1042,10 +984,11 @@ __device__ __forceinline__ void compact_walk(int* ring, int len, int lane,
     __syncwarp();
 }
 
-// element e, which passed the head under the staged row T: the head again,
-// then the masked legs.  Per-leg rule: bit l any ok, L + l ok & !crossed,
-// 2L + l ok | crossed.  Shared rule: bit 0 valid ((rc >= k) | pv), bit 1
-// edge (cc > L - k), bit 2 valid & !edge.
+// element e, which passed the head under the staged row T (in layout Lay):
+// the head again, then the masked legs.  Per-leg rule: bit l any ok, L + l
+// ok & !crossed, 2L + l ok | crossed.  Shared rule: bit 0 valid ((rc >= k) |
+// pv), bit 1 edge (cc > L - k), bit 2 valid & !edge.
+template <class Lay = Staged>
 __device__ __forceinline__ unsigned item_legs(const ItemParams& P,
                                               const float* T, unsigned m,
                                               bool shared, bool pv,
@@ -1060,7 +1003,7 @@ __device__ __forceinline__ unsigned item_legs(const ItemParams& P,
     int rc = 0, cc = 0;
     for (int l = 0; l < L; ++l) {
         if (!((m >> l) & 1u)) continue;
-        const unsigned r = item_leg<Staged>(P, l, T, vx, vy, vz);
+        const unsigned r = item_leg<Lay>(P, l, T, vx, vy, vz);
         const bool ok = r & 1u, crossed = (r >> 1) & 1u;
         rc += ok ? 1 : 0;
         cc += crossed ? 1 : 0;
@@ -1369,21 +1312,98 @@ legmov_cell_shared_kernel(
 // Replaces the Pallas kernel legmov_tpu/ops/csr_cell_eval.py
 // `kernel_cm_perleg` (the same pallas_call as K6b, `not shared`).
 //
-// Chunk-outer, orientation-inner, with run bits per orientation (3 x L bits a
-// word, in shared memory): a (chunk, orientation, leg) is skipped when the
-// leg's ball misses the chunk or the leg is settled for that orientation;
-// valid accumulates as soon as an orientation's any-ok count reaches k; edge
-// needs each orientation's final counts and folds at the cell's last chunk.
-// No chunk is skipped as a whole.
+// Per orientation q the run bits (3 x L, as K6a's) and two sticky marks:
+// edge under q is certainly false, and q can no longer make the cell valid.
+// The marks come from the run bits and the lookahead: per (orientation,
+// leg) the last live chunk whose role byte sets the leg, from one pass over
+// the cell's [CH, S] role bytes, so that "the legs whose ball meets a later
+// chunk" is a compare a leg.
+//   Valid is walked chunk-major: once a chunk, every orientation that can
+//   still make it valid walks the legs not yet ok.  Valid is final once an
+//   orientation's any-ok count reaches k; q can no longer make it once that
+//   count plus the legs not yet ok that meet a later chunk is below k.
+//   Edge is walked for one candidate orientation at a time, chunk by chunk:
+//   the legs not yet ok & !crossed.  Edge is certainly true once the
+//   candidate has nmax >= k and nmin plus its uncertain legs that meet a
+//   later chunk below k; certainly false under q once nmin >= k, or (under
+//   the candidate) nmax plus the legs not yet ok | crossed that meet a later
+//   chunk is below k.  When the candidate's edge is certainly false, the
+//   next orientation whose edge is not becomes the candidate, and its walk
+//   starts again at chunk 0 (chunks already walked for valid are walked for
+//   the candidate alone).
+// The cell stops once valid (or parent-valid, or every orientation's valid
+// mark) and edge (certain, or every orientation's edge mark) are decided.
+// The marks are read at the start (every orientation, the lookahead alone),
+// after each evaluated (chunk, orientation), and at each chunk's end; the
+// plain version (ops/csr_cell_eval.py cell_eval_cm_perleg_plain) reads them
+// at the same points, so the seven counters are its counters.
 //
-// Bound on this card: as K6a over the triples this walk evaluates.
+// Why one candidate: a cell's edge is known only when an orientation's
+// uncertain legs are past their last chunk, near the end of the queue.
+// Walked for every orientation at once, edge took 9x K6a's leg pipelines on
+// the solve's real cells; walked for one orientation at a time (most cells
+// are decided by the first), as much as K6a's.
 //
-// Design: one block of 256 threads a cell, with block barriers; the row is
-// staged as the table holds it (TableRow) and the item called out of line.
-// Staged in the kernels' layout instead, the same walk ran 14 % slower.
+// Bound on this card: as K6a, over the (chunk, orientation, leg) triples
+// this walk evaluates: operations, about half of which the forbidden fused
+// multiply-add leaves within reach.
+//
+// Design.  One warp a cell in a block of its own, as K6a and K6b (16 warps
+// an SM, no block barrier; votes are warp votes).  Lane q & 31 keeps the
+// run word and marks of orientations q and q + 32 in registers and their
+// lookahead in shared memory; the next orientation to evaluate in a chunk
+// is the first set bit of two ballots.  The elements that pass the head go
+// through the warp's ring (compact_walk), so the leg pipelines run on full
+// warps.  The row is staged as the table holds it (TableRow: seven 4-byte
+// loads a circle, three a corner) when an orientation is evaluated: timed in
+// turns on the depth-7 batch it was 1.02x the speed of the kernels' layout
+// (two 16-byte loads a circle or corner, more work to stage), which K5, K6a
+// and K6b keep.  Staging only the masked legs' records, or holding the
+// chunk's coordinates in shared memory across its orientations (24 KB a
+// block: 7 warps an SM, not 16), did not pay.
 // ---------------------------------------------------------------------------
 
-extern "C" __global__ void __launch_bounds__(CK_BLOCK, 2)
+#define CM_EDGE_DEAD (1u << 30)   // edge under this orientation certainly false
+#define CM_VALID_DEAD (1u << 31)  // this orientation cannot make the cell valid
+
+// orientation word r (run bits and marks) with its marks brought up to date
+// after chunk ch, `last` its lookahead: the edge marks of the lookahead where
+// `cand` (its edge walk is complete up to ch), its valid mark where `front`
+// (its valid walk is).  v: the any-ok count reached k; et: edge is
+// certainly true under it.
+__device__ __forceinline__ unsigned cm_mark(unsigned r, const int* last,
+                                            int ch, bool cand, bool front,
+                                            int L, int k, bool& v, bool& et) {
+    const unsigned Lmask = (1u << L) - 1u;
+    unsigned pend = 0u;
+    for (int l = 0; l < L; ++l) pend |= (last[l] > ch ? 1u : 0u) << l;
+    const unsigned ok = r & Lmask, cert = (r >> L) & Lmask,
+                   any = (r >> (2 * L)) & Lmask;
+    const int cnt = __popc(ok), nmin = __popc(cert), nmax = __popc(any);
+    v = cnt >= k;
+    et = cand & !(r & CM_EDGE_DEAD) & (nmax >= k) &
+         (nmin + __popc(pend & ~cert) < k);
+    if ((nmin >= k) | (cand & (nmax + __popc(pend & ~any) < k)))
+        r |= CM_EDGE_DEAD;
+    if (front & (cnt + __popc(pend & ~ok) < k)) r |= CM_VALID_DEAD;
+    return r;
+}
+
+// the legs of role byte rb that orientation word r still needs walked:
+// `edge_walk` for the candidate while edge is open, `valid_walk` while
+// valid is open on a chunk not yet walked for it
+__device__ __forceinline__ unsigned cm_need(unsigned r, unsigned rb,
+                                            bool edge_walk, bool valid_walk,
+                                            int L) {
+    unsigned legs = 0u;
+    if (edge_walk & !(r & CM_EDGE_DEAD))
+        legs = ~(r >> L);
+    else if (valid_walk & !(r & CM_VALID_DEAD))
+        legs = ~r;
+    return rb & legs & ((1u << L) - 1u);
+}
+
+extern "C" __global__ void __launch_bounds__(32, 16)
 legmov_cell_cm_perleg_kernel(
     const int* __restrict__ cst, const int* __restrict__ cln,
     const unsigned char* __restrict__ role, const int* __restrict__ tot,
@@ -1391,63 +1411,163 @@ legmov_cell_cm_perleg_kernel(
     const float* __restrict__ xs, const float* __restrict__ ys,
     const float* __restrict__ zs, int* __restrict__ out, long long CH, int S,
     const __grid_constant__ ItemParams P) {
-    __shared__ float T[CK_MAX_W];
-    __shared__ unsigned red[CK_WARPS];
-    __shared__ unsigned run2[CK_MAX_QUATS];
+    extern __shared__ __align__(16) unsigned char smem[];
+    const int lane = threadIdx.x;
     const long long cell = blockIdx.x;
+    float* T = reinterpret_cast<float*>(smem);
+    int* ring = reinterpret_cast<int*>(T + CK_TW(P.n_legs));
+    // lookahead of orientations lane and lane + 32, written and read by
+    // this lane alone
+    int* lastA = ring + CK_RING + lane * CK_MAX_LEGS;
+    int* lastB = lastA + 32 * CK_MAX_LEGS;
     const int L = P.n_legs, k = P.k;
-    const unsigned Lmask = (1u << L) - 1u;
     const float* ci = cellinfo + cell * 4;
-    long long n = tot[cell];
-    if (n > CH) n = CH;
+    const bool pv = ci[3] > 0.5f;
+    const int n = (int)(tot[cell] < CH ? tot[cell] : CH);
     const int* st = cst + cell * CH;
     const int* ln = cln + cell * CH;
     const unsigned char* rl = role + cell * CH * S;
-    for (int q = threadIdx.x; q < S; q += blockDim.x) run2[q] = 0u;
-    __syncthreads();
+    const bool hasA = lane < S, hasB = lane + 32 < S;
 
-    bool acc0 = false, acc1 = false;
-    int a[7] = {0, 0, 0, 0, 0, 0, 0};
-    int work = 0;
-    for (long long ch = 0; ch < n; ++ch) {
-        const int len = ln[ch];
-        if (len > 0) {
-            a[0] += 1;
-            a[3] += len;
-            const long long start = st[ch];
-            for (int q = 0; q < S; ++q) {
-                const unsigned st8 = run2[q];
-                const unsigned settled = st8 & (st8 >> L) & Lmask;
-                const unsigned m = rl[ch * S + q] & 0x3Fu & ~settled & Lmask;
-                if (m == 0u) continue;
-                const int legs = __popc(m);
-                a[1] += 1;
-                a[2] += legs;
-                a[4] += len;
-                a[5] += len * legs;
-                // the parent-valid slot is the shared rule's term: unused
-                stage_row(T, legtab, q, P.table_width, ci, false);
-                const unsigned now =
-                    st8 | block_or(chunk_leg_bits(P, T, m, xs, ys, zs, start,
-                                                  len, work), red);
-                if (threadIdx.x == 0) run2[q] = now;
-                __syncthreads();
-                acc0 |= __popc(now & Lmask) >= k;
+    {
+        int la[CK_MAX_LEGS], lb[CK_MAX_LEGS];
+#pragma unroll
+        for (int l = 0; l < CK_MAX_LEGS; ++l) la[l] = lb[l] = -1;
+        for (int ch = 0; ch < n; ++ch) {
+            if (ln[ch] <= 0) continue;
+            const unsigned ra = hasA ? rl[(long long)ch * S + lane] : 0u;
+            const unsigned rb = hasB ? rl[(long long)ch * S + lane + 32] : 0u;
+#pragma unroll
+            for (int l = 0; l < CK_MAX_LEGS; ++l) {
+                if ((ra >> l) & 1u) la[l] = ch;
+                if ((rb >> l) & 1u) lb[l] = ch;
             }
         }
-        if (ch == n - 1) {
-            for (int q = 0; q < S; ++q) {
-                const unsigned st8 = run2[q];
-                const int cnt = __popc(st8 & Lmask);
-                const int nmin = __popc((st8 >> L) & Lmask);
-                const int nmax = __popc((st8 >> (2 * L)) & Lmask);
-                acc0 |= cnt >= k;
-                acc1 |= (nmin < k) & (nmax >= k);
-            }
+#pragma unroll
+        for (int l = 0; l < CK_MAX_LEGS; ++l) {
+            lastA[l] = la[l];
+            lastB[l] = lb[l];
         }
     }
-    a[6] = block_sum(work, red);
-    write_out(out, cell, acc0, acc1, false, a, threadIdx.x == 0);
+
+    // orientations past S are marked dead, so that the votes over the
+    // warp's 64 words see only real ones
+    const unsigned dead = CM_EDGE_DEAD | CM_VALID_DEAD;
+    unsigned rA = hasA ? 0u : dead, rB = hasB ? 0u : dead;
+    bool valid = false, edge = false, all_e = false, all_v = false;
+    // the flags from orientation flags (v, et) and the words' marks
+    auto vote = [&](bool v, bool et) {
+        valid |= __any_sync(CK_FULL, v);
+        edge |= __any_sync(CK_FULL, et);
+        all_e = __all_sync(CK_FULL, (rA & rB & CM_EDGE_DEAD) != 0u);
+        all_v = __all_sync(CK_FULL, (rA & rB & CM_VALID_DEAD) != 0u);
+        return (valid | pv | all_v) & (edge | all_e);
+    };
+    // every orientation's marks after chunk ch; `c` the candidate, or every
+    // orientation when c < 0
+    auto mark_all = [&](int ch, int c, bool front) {
+        bool va = false, ea = false, vb = false, eb = false;
+        if (hasA)
+            rA = cm_mark(rA, lastA, ch, c < 0 || lane == c, front, L, k, va,
+                         ea);
+        if (hasB)
+            rB = cm_mark(rB, lastB, ch, c < 0 || lane + 32 == c, front, L, k,
+                         vb, eb);
+        return vote(va | vb, ea | eb);
+    };
+    // the first orientation past `after` whose edge is open, S for none
+    auto next_cand = [&](int after) {
+        const unsigned oa = __ballot_sync(
+            CK_FULL, hasA & (lane > after) & !(rA & CM_EDGE_DEAD));
+        const unsigned ob = __ballot_sync(
+            CK_FULL, hasB & (lane + 32 > after) & !(rB & CM_EDGE_DEAD));
+        return oa ? __ffs(oa) - 1 : (ob ? 31 + __ffs(ob) : S);
+    };
+    bool done = mark_all(-1, -1, true);
+    int cand = next_cand(-1);
+    int front_at = 0;  // the first chunk not yet walked for valid
+
+    int a[7] = {0, 0, 0, 0, 0, 0, 0};
+    int work = 0;
+    for (int ch = 0; !done && ch < n;) {
+        const int len = ln[ch];
+        const long long start = st[ch];
+        const unsigned rbA = hasA ? rl[(long long)ch * S + lane] : 0u;
+        const unsigned rbB = hasB ? rl[(long long)ch * S + lane + 32] : 0u;
+        const bool front = ch >= front_at;
+        bool walked = false;
+        int qc = -1;  // the orientation evaluated last in this chunk
+        while (len > 0) {
+            const bool e_open = !(edge | all_e);
+            const bool v_open = front & !(valid | pv | all_v);
+            const unsigned mA =
+                lane > qc ? cm_need(rA, rbA, e_open & (lane == cand), v_open, L)
+                          : 0u;
+            const unsigned mB =
+                lane + 32 > qc
+                    ? cm_need(rB, rbB, e_open & (lane + 32 == cand), v_open, L)
+                    : 0u;
+            const unsigned bA = __ballot_sync(CK_FULL, mA != 0u);
+            const unsigned bB = __ballot_sync(CK_FULL, mB != 0u);
+            if ((bA | bB) == 0u) break;
+            const int q = bA ? __ffs(bA) - 1 : 31 + __ffs(bB);
+            const unsigned m = __shfl_sync(CK_FULL, bA ? mA : mB, q & 31);
+            stage_table_row_warp(T, legtab + (long long)q * P.table_width,
+                                 CK_HDR + L * CK_LEG_BLOCK, ci, lane);
+            const int legs = __popc(m);
+            a[1] += 1;
+            a[2] += legs;
+            a[4] += len;
+            a[5] += len * legs;
+            unsigned bits = 0u;
+            compact_walk(
+                ring, len, lane,
+                [&](int c) {
+                    float vx, vy, vz;
+                    return item_head(T, xs[start + c], ys[start + c],
+                                     zs[start + c], vx, vy, vz);
+                },
+                [&](int c) {
+                    bits |= item_legs<TableRow>(P, T, m, false, false, xs, ys,
+                                                zs, start + c, work);
+                });
+            bits = __reduce_or_sync(CK_FULL, bits);
+            bool vq = false, eq = false;
+            if (lane == (q & 31)) {
+                if (q < 32)
+                    rA = cm_mark(rA | bits, lastA, ch, q == cand, front, L, k,
+                                 vq, eq);
+                else
+                    rB = cm_mark(rB | bits, lastB, ch, q == cand, front, L, k,
+                                 vq, eq);
+            }
+            walked = true;
+            done = vote(vq, eq);
+            if (done) break;
+            qc = q;
+        }
+        if (walked) {
+            a[0] += 1;
+            a[3] += len;
+        }
+        if (done) break;
+        if (front) front_at = ch + 1;
+        done = mark_all(ch, cand, front);
+        if (done) break;
+        // a candidate whose edge is certainly false hands over to the next
+        // one, whose walk starts again at chunk 0
+        const bool e_open = !(edge | all_e);
+        const unsigned cw =
+            __shfl_sync(CK_FULL, cand < 32 ? rA : rB, cand & 31);
+        if (e_open & ((cw & CM_EDGE_DEAD) != 0u)) {
+            cand = next_cand(cand);
+            ch = 0;
+        } else {
+            ch = e_open ? ch + 1 : (ch + 1 > front_at ? ch + 1 : front_at);
+        }
+    }
+    a[6] = (int)__reduce_add_sync(CK_FULL, (unsigned)work);
+    write_out(out, cell, valid, edge, 0, a, lane == 0);
 }
 
 // ---------------------------------------------------------------------------
@@ -1595,6 +1715,13 @@ static size_t cell_block_bytes(int n_legs, int window, bool counts) {
     return row + (counts ? ((size_t)window + 15) / 16 * 16 : 0);
 }
 
+// dynamic shared memory of a K6c block: the row as the table holds it, the
+// ring and the lookahead of 64 orientations
+static size_t cm_block_bytes(int n_legs) {
+    return (size_t)CK_TW(n_legs) * 4 + CK_RING * 4 +
+           (size_t)CK_MAX_QUATS * CK_MAX_LEGS * 4;
+}
+
 static cudaError_t allow_smem(const void* fn, size_t bytes) {
     if (bytes > (size_t)smem_optin()) return cudaErrorInvalidValue;
     if (bytes <= 48 * 1024) return cudaSuccess;
@@ -1648,8 +1775,14 @@ extern "C" int legmov_cell_cm_perleg(
     int S, int window, const ItemParams* params, void* stream) {
     (void)window;
     if (C <= 0) return 0;
-    if (!cell_args_ok(CH, S, params)) return (int)cudaErrorInvalidValue;
-    legmov_cell_cm_perleg_kernel<<<(unsigned)C, CK_BLOCK, 0,
+    if (!cell_args_ok(CH, S, params) || C > 0x7fffffffLL ||
+        CH > 0x7fffffffLL)
+        return (int)cudaErrorInvalidValue;
+    const size_t bytes = cm_block_bytes(params->n_legs);
+    const cudaError_t e =
+        allow_smem((const void*)legmov_cell_cm_perleg_kernel, bytes);
+    if (e != cudaSuccess) return (int)e;
+    legmov_cell_cm_perleg_kernel<<<(unsigned)C, 32, bytes,
                                    (cudaStream_t)stream>>>(
         cst, cln, role, tot, cellinfo, legtab, xs, ys, zs, out, CH, S, *params);
     return (int)cudaGetLastError();
@@ -1693,6 +1826,9 @@ extern "C" int legmov_cell_occupancy(int form, int n_legs, int window,
     } else if (form == 0) {
         fn = (const void*)legmov_item_kernel;
     } else if (form == 3) {
+        thr = 32;
+        if (n_legs < 1 || n_legs > CK_MAX_LEGS) return (int)cudaErrorInvalidValue;
+        bytes = cm_block_bytes(n_legs);
         fn = (const void*)legmov_cell_cm_perleg_kernel;
     } else {
         return (int)cudaErrorInvalidValue;

@@ -521,7 +521,10 @@ def solve_positionability(
         if rot_active and csr_env is not None and r_need <= cce.R_CAP:
             # the chunk-major kernel for the shared rule (one stream per
             # chunk instead of S), the quat-major kernel for the per-leg
-            # rule: the reference implementation's defaults
+            # rule: the reference implementation's defaults.  On an H100
+            # the chunk-major per-leg kernel took 1.48x the quat-major
+            # kernel's time over the depth-7 per-leg solve's batches, in
+            # turns (chip_smoke.py phase 8)
             chunk_major = shared_foothold and not _env_flag(
                 "LEGMOV_CSR_QUAT_MAJOR", 0)
             audit = _env_flag("LEGMOV_HIER_AUDIT", 0)

@@ -31,15 +31,16 @@ ops/csr_grid.py, shaped for cells instead of poses:
 * the per-orientation workspace tables are one ``[S, W]`` table per level
   (:func:`level_tables`): they depend only on the orientation, not the cell.
 
-Three kernels (source ``csrc/cell_kernels.cu``) walk the queues:
-quat-major (:func:`cell_eval_quat_major`, the per-leg rule's default) and
-chunk-major shared (:func:`cell_eval_shared`) one warp a cell, and
-chunk-major per-leg (:func:`cell_eval_cm_perleg`) one block a cell.  Beside
-each stands its plain PyTorch version
-(``*_plain``), which walks the queue in the kernel's order with its skip
-rules and work counters, vectorised over cells.  A wrapper runs the plain
-version for CPU tensors only; for a CUDA tensor it launches or raises, and
-counts its launches in its ``launches`` attribute.
+Three kernels (source ``csrc/cell_kernels.cu``) walk the queues, one warp
+a cell: quat-major (:func:`cell_eval_quat_major`, the per-leg rule's
+default), chunk-major shared (:func:`cell_eval_shared`) and chunk-major
+per-leg (:func:`cell_eval_cm_perleg`: valid walked chunk-major over every
+orientation, edge one candidate orientation at a time, and a lookahead that
+stops a cell once its flags are decided).  Beside each stands its plain
+PyTorch version (``*_plain``), which walks the queue in the kernel's order
+with its skip rules and work counters, vectorised over cells.  A wrapper
+runs the plain version for CPU tensors only; for a CUDA tensor it launches
+or raises, and counts its launches in its ``launches`` attribute.
 
 Exactness: the slab set covers the elongated box (superset); every streamed
 candidate is a real foothold; the in-kernel ``pre`` test is the same exact
@@ -443,8 +444,9 @@ class _Walk:
 
     def head(self, rows, ch, q, with_pv=True):
         """Getter, prefilter and body-frame vectors of chunk ``ch`` of the
-        cells ``rows`` under orientation ``q``: the chunk's own elements,
-        the rest of the width filled with far sentinels."""
+        cells ``rows`` under orientation ``q`` (each an int, or a tensor
+        with one per row): the chunk's own elements, the rest of the width
+        filled with far sentinels."""
         F = self.xs.shape[0]
         st = self.q.cst[rows, ch].to(torch.int64)[:, None]
         ln = self.q.cln[rows, ch][:, None]
@@ -464,7 +466,8 @@ class _Walk:
                 return info[:, i - 4:i - 3]
             if i == 7:  # parent_valid (shared-rule item term)
                 return pvf
-            return legtab[q, i]
+            v = legtab[q, i]
+            return v[:, None] if v.dim() else v
 
         pre, vx, vy, vz = cmd.item_head_plain(
             s, take(self.xs), take(self.ys), take(self.zs))
@@ -627,54 +630,170 @@ def cell_eval_shared_plain(queue, cellinfo, legtab, xs, ys, zs, consts,
 
 
 def cell_eval_cm_perleg_plain(queue, cellinfo, legtab, xs, ys, zs, consts,
-                              k: int, skips: bool = True) -> torch.Tensor:
+                              k: int, skips: bool = True,
+                              exits: bool = True) -> torch.Tensor:
     """Plain PyTorch version of the chunk-major per-leg-rule kernel (see
     :func:`cell_eval_quat_major_plain` for the result; the leaf column is
-    0: the caller derives it)."""
+    0: the caller derives it, and ORs parent-valid into valid).
+
+    Per (cell, orientation) the run bits (any ok, ok & !crossed, ok |
+    crossed per leg) and two sticky marks, "edge is certainly false under
+    this orientation" and "this orientation can no longer make the cell
+    valid", read from the run bits and the lookahead (per leg, the last
+    live chunk whose role byte sets it).  Valid is walked chunk-major over
+    every orientation, once per chunk: the legs not yet ok.  Edge is walked
+    for one candidate orientation at a time, chunk by chunk: the legs not
+    yet ok & !crossed; when the candidate's edge is certainly false the
+    next orientation that is not becomes the candidate and its walk starts
+    again at chunk 0.  A cell stops once valid (or parent-valid, or every
+    orientation's valid mark) and edge (certainly true under the
+    candidate, or every orientation's edge mark) are decided.  The marks
+    are read at the start (for every orientation), after each evaluated
+    (chunk, orientation), and at each chunk's end (the candidate's, and
+    every orientation's valid mark when the chunk is new).  A chunk counts
+    once a visit where at least one orientation was evaluated.  The cells
+    walk independently, one (chunk, orientation) or chunk end a step.
+    ``exits=False`` walks every live chunk once with every leg its role
+    byte sets until the leg is settled under that orientation (the walk
+    before the exit); ``skips=False`` walks everything.  The flags never
+    change."""
     wk = _Walk(queue, cellinfo, legtab, xs, ys, zs, consts, k)
     C, L, S, dev = wk.C, wk.L, wk.S, wk.dev
+    i64 = torch.int64
     valid = torch.zeros(C, dtype=torch.bool, device=dev)
     edge = torch.zeros(C, dtype=torch.bool, device=dev)
-    run2 = torch.zeros((C, S, 3, L), dtype=torch.bool, device=dev)
+    run = torch.zeros((C, S, 3, L), dtype=torch.bool, device=dev)
+    edge_dead = torch.zeros((C, S), dtype=torch.bool, device=dev)
+    valid_dead = torch.zeros((C, S), dtype=torch.bool, device=dev)
+    done = torch.zeros(C, dtype=torch.bool, device=dev)
     all_legs = (1 << L) - 1
     shifts = torch.arange(L, device=dev)
+    qs = torch.arange(S, device=dev)
+    use_exit = skips and exits
+    # without the exit every orientation's walk is complete: every mark holds
+    whole = not use_exit
+    # the lookahead: per (cell, orientation, leg) the last live chunk whose
+    # role byte sets the leg, -1 for none
+    last = torch.full((C, S, L), -1, dtype=i64, device=dev)
     for ch in range(wk.n_steps):
-        live = wk.live(ch)
-        ln_all = queue.cln[:, ch].to(torch.int64)
-        wk.counts[:, 0] += live
-        wk.counts[:, 3] += live * ln_all
-        for q in range(S):
-            infl, _, _ = wk.role(ch, q)
-            if skips:
-                settled = (run2[:, q, 0] & run2[:, q, 1]).to(torch.int32)
-                need = all_legs & ~torch.sum(settled << shifts, dim=1)
-                m = infl & need.to(torch.int32)
-            else:
-                m = torch.full_like(infl, all_legs)
-            rows = torch.nonzero(live & (m != 0))[:, 0]
-            if not rows.numel():
-                continue
-            mr = m[rows]
-            legs = _popcount(mr)
-            ln = ln_all[rows]
-            wk.count(rows, (1, 2, 4, 5), (1, legs, ln, ln * legs))
-            s, pre, vx, vy, vz = wk.head(rows, ch, q, with_pv=False)
+        infl = queue.role[:, ch, :].to(i64) & 0x3F  # [C, S]
+        hit = (((infl[..., None] >> shifts) & 1) != 0) & wk.live(ch)[:, None,
+                                                                      None]
+        last = torch.where(hit, ch, last)
+
+    def bits_of(r):  # [..., L] bool -> leg mask
+        return torch.sum(r.to(i64) << shifts, dim=-1)
+
+    def mark(rows, qq, chv, cand, front):
+        """The marks and flags of orientations ``qq [R, Q]`` of the cells
+        ``rows [R]`` after chunk ``chv [R]``: the lookahead's edge marks
+        where ``cand [R, Q]`` (the orientation's edge walk is complete up
+        to the chunk), its valid mark where ``front [R]`` (every
+        orientation's valid walk is)."""
+        rr = rows[:, None]
+        r = run[rr, qq]
+        pend = last[rr, qq] > chv[:, None, None]
+        ok, cert, anyb = r[..., 0, :], r[..., 1, :], r[..., 2, :]
+        cnt, nmin, nmax = ok.sum(-1), cert.sum(-1), anyb.sum(-1)
+        et = (cand & ~edge_dead[rr, qq] & (nmax >= k)
+              & (nmin + (pend & ~cert).sum(-1) < k))
+        edge_dead[rr, qq] |= (nmin >= k) | (
+            cand & (nmax + (pend & ~anyb).sum(-1) < k))
+        valid_dead[rr, qq] |= front[:, None] & (
+            cnt + (pend & ~ok).sum(-1) < k)
+        valid[rows] |= (cnt >= k).any(dim=1)
+        edge[rows] |= et.any(dim=1)
+        if use_exit:
+            done[rows] = ((valid[rows] | wk.pv[rows]
+                           | valid_dead[rows].all(dim=1))
+                          & (edge[rows] | edge_dead[rows].all(dim=1)))
+
+    def first_open(after):
+        """Per cell, the first orientation past ``after [C]`` whose edge
+        is not certainly false, S for none."""
+        open_ = ~edge_dead & (qs[None, :] > after[:, None])
+        return torch.where(open_.any(dim=1),
+                           torch.argmax(open_.to(torch.int8), dim=1), S)
+
+    every = torch.arange(C, device=dev)
+    mark(every, qs.expand(C, S), torch.full((C,), -1, dtype=i64, device=dev),
+         torch.ones((C, S), dtype=torch.bool, device=dev),
+         torch.ones(C, dtype=torch.bool, device=dev))
+    cand = first_open(torch.full((C,), -1, dtype=i64, device=dev))
+    ch = torch.zeros(C, dtype=i64, device=dev)
+    front = torch.zeros(C, dtype=i64, device=dev)  # chunks walked for valid
+    qn = torch.zeros(C, dtype=i64, device=dev)     # next orientation to visit
+    walked = torch.zeros(C, dtype=torch.bool, device=dev)
+    while True:
+        rows = torch.nonzero(~done & (ch < wk.tot))[:, 0]
+        if not rows.numel():
+            break
+        chr_ = ch[rows]
+        rb = queue.role[rows, chr_, :].to(i64) & 0x3F  # [R, S]
+        r = run[rows]
+        ok_m, cert_m = bits_of(r[:, :, 0]), bits_of(r[:, :, 1])
+        if not skips:
+            legs = torch.full_like(rb, all_legs)
+        elif not use_exit:
+            legs = ~cert_m
+        else:
+            e_open = ~(edge[rows] | edge_dead[rows].all(dim=1))
+            v_open = ~(valid[rows] | wk.pv[rows]
+                       | valid_dead[rows].all(dim=1))
+            is_c = (qs[None, :] == cand[rows, None]) & ~edge_dead[rows]
+            v_on = ((v_open & (chr_ >= front[rows]))[:, None]
+                    & ~valid_dead[rows])
+            legs = torch.where(e_open[:, None] & is_c, ~cert_m,
+                               torch.where(v_on, ~ok_m, 0))
+        live = queue.cln[rows, chr_] > 0
+        m = (rb & legs & all_legs) * (live[:, None] & (qs[None, :]
+                                                      >= qn[rows, None]))
+        has = (m != 0).any(dim=1)
+        # a (chunk, orientation) for the cells that have one left here
+        ev = rows[has]
+        if ev.numel():
+            qe = torch.argmax((m[has] != 0).to(torch.int8), dim=1)
+            me = m[has].gather(1, qe[:, None])[:, 0]
+            che = chr_[has]
+            legs_n = _popcount(me)
+            ln = queue.cln[ev, che].to(i64)
+            first = ~walked[ev]  # the chunk visit's first orientation
+            wk.count(ev, (0, 1, 2, 3, 4, 5),
+                     (first, 1, legs_n, first * ln, ln, ln * legs_n))
+            walked[ev] = True
+            s, pre, vx, vy, vz = wk.head(ev, che, qe, with_pv=False)
             for l in range(L):
-                lm = ((mr >> l) & 1) != 0
+                lm = ((me >> l) & 1) != 0
                 if not bool(lm.any()):
                     continue
-                okp, crossed = wk.leg(rows, lm, s, l, pre, vx, vy, vz)
-                run2[rows, q, 0, l] |= okp.any(dim=1)
-                run2[rows, q, 1, l] |= (okp & ~crossed).any(dim=1)
-                run2[rows, q, 2, l] |= (okp | crossed).any(dim=1)
-            # incremental valid: any-ok bits are monotone
-            valid[rows] |= run2[rows, q, 0].sum(dim=1) >= k
-        last = wk.tot - 1 == ch
-        cnt = run2[:, :, 0].sum(dim=2)  # [C, S]
-        nmin = run2[:, :, 1].sum(dim=2)
-        nmax = run2[:, :, 2].sum(dim=2)
-        valid |= last & (cnt >= k).any(dim=1)
-        edge |= last & ((nmin < k) & (nmax >= k)).any(dim=1)
+                okp, crossed = wk.leg(ev, lm, s, l, pre, vx, vy, vz)
+                run[ev, qe, 0, l] |= okp.any(dim=1)
+                run[ev, qe, 1, l] |= (okp & ~crossed).any(dim=1)
+                run[ev, qe, 2, l] |= (okp | crossed).any(dim=1)
+            mark(ev, qe[:, None], che, (qe == cand[ev])[:, None] | whole,
+                 (che >= front[ev]) | whole)
+            qn[ev] = qe + 1
+        # the chunk's end for the others
+        ce = rows[~has]
+        if not ce.numel():
+            continue
+        chc = ch[ce]
+        new = chc >= front[ce]
+        front[ce] = torch.maximum(front[ce], chc + 1)
+        mark(ce, qs.expand(ce.numel(), S), chc,
+             (qs[None, :] == cand[ce, None]) | whole, new | whole)
+        nxt = chc + 1
+        if use_exit:
+            e_open = ~(edge[ce] | edge_dead[ce].all(dim=1))
+            c_now = cand[ce]
+            dead = edge_dead[ce, torch.clamp(c_now, max=S - 1)] & (c_now < S)
+            sw = ~done[ce] & e_open & dead
+            cand[ce] = torch.where(sw, first_open(cand)[ce], c_now)
+            nxt = torch.where(e_open, torch.where(sw, 0, nxt),
+                              torch.maximum(nxt, front[ce]))
+        ch[ce] = nxt
+        qn[ce] = 0
+        walked[ce] = False
     return wk.out(valid, edge, torch.zeros_like(valid))
 
 

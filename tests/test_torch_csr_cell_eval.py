@@ -393,3 +393,128 @@ def test_wrappers_run_the_plain_versions_on_cpu_tensors_and_check_shapes():
     assert all(t.numel() == 0 for t in none[:3])
     far = lv.evaluate(centers + np.float32(1e6), pv, 3, True)
     assert not far[0].any() and not far[1].any()  # pv needs a candidate too
+
+
+def _tall_scene(seed):
+    """``_scene`` with the cells spread from 50 to 650 mm above the
+    footholds' band: some reach it with every leg, some with a few, some
+    not at all, so that valid and edge are each true and false, and every
+    mark of the chunk-major per-leg walk is reached."""
+    fh, quats, centers, pv = _scene(seed=seed)
+    centers[:, 2] = np.random.default_rng(seed + 100).uniform(50, 650, CELLS)
+    return fh, quats, centers, pv
+
+
+def _cm_walks(lv, q, centers, pv, k, every=True):
+    """The chunk-major per-leg walk on queue ``q`` with its exit and the
+    quat-major walk; with ``every`` also the walk without the exit (the
+    walk before it) and the walk with no skip at all."""
+    consts = cmd.dist_leg_constants(lv.robot)
+    cellinfo = torch.cat([_t(centers), _t(pv)[:, None].float()], dim=1)
+    args = (cellinfo, lv.legtab, lv.csr.xs, lv.csr.ys, lv.csr.zs, consts, k)
+    walks = {"exit": cce.cell_eval_cm_perleg_plain(q, *args),
+             "quat-major": cce.cell_eval_quat_major_plain(q, *args, False)}
+    if every:
+        full = q._replace(role=torch.where(q.cln[:, :, None] > 0, 255, 0).to(
+            torch.uint8).expand_as(q.role).contiguous())
+        walks["no exit"] = cce.cell_eval_cm_perleg_plain(q, *args,
+                                                         exits=False)
+        walks["no skip"] = cce.cell_eval_cm_perleg_plain(full, *args,
+                                                         skips=False)
+    return walks
+
+
+def _perleg_flags(words, pv):
+    """valid, edge, leaf as the per-leg rule's caller reads the words."""
+    valid = (words[:, 0] > 0).numpy() | pv
+    edge = (words[:, 1] > 0).numpy()
+    return valid, edge, valid & ~edge
+
+
+@pytest.mark.parametrize("seed,k", [(11, 3), (11, 4), (12, 4)])
+def test_cm_perleg_exit_keeps_the_flags_and_cuts_the_work(seed, k):
+    """The chunk-major per-leg walk with its exit gives JAX ``_eval_cells``'
+    flags, as do the walk without the exit, the walk with no skip and the
+    quat-major walk; on this draw the exit fires (some cell walks fewer
+    chunks than without it) and the evaluated (chunk, orientation) items,
+    leg pipelines and the elements behind them fall.  (Chunk visits may
+    not: a new edge candidate walks the chunks again from the first.)"""
+    fh, quats, centers, pv = _tall_scene(seed)
+    want = _jax_flags(jrobot.get_moonbot_robot(), fh, quats, centers, pv, k,
+                      False, chunk=400)
+    assert want[0].any() and not want[0].all()
+    assert want[1].any() and not want[1].all()
+    lv = _Level(trobot.get_moonbot_robot(), fh, quats)
+    q = lv.queue(centers, k, False)
+    walks = _cm_walks(lv, q, centers, pv, k)
+    for name, words in walks.items():
+        for g, w, flag in zip(_perleg_flags(words, pv), want,
+                              ("valid", "edge", "leaf")):
+            np.testing.assert_array_equal(g, w, err_msg=f"{flag} {name}")
+    ex, no = walks["exit"][:, 3:], walks["no exit"][:, 3:]
+    assert (ex[:, 0] < no[:, 0]).any()
+    work = [1, 2, 4, 5, 6]
+    assert (ex.sum(dim=0)[work] < no.sum(dim=0)[work]).all()
+    assert (walks["no exit"][:, 3:].sum(dim=0)
+            <= walks["no skip"][:, 3:].sum(dim=0)).all()
+    # the CPU wrapper is the walk with its exit
+    cellinfo = torch.cat([_t(centers), _t(pv)[:, None].float()], dim=1)
+    assert torch.equal(
+        cce.cell_eval_cm_perleg(q, cellinfo, lv.legtab, lv.csr.xs, lv.csr.ys,
+                                lv.csr.zs, cmd.dist_leg_constants(lv.robot),
+                                k, WINDOW), walks["exit"])
+
+
+@pytest.mark.parametrize("k", [3, 4])
+def test_cm_perleg_walk_over_more_than_32_orientations(k):
+    """The kernel keeps orientations q and q + 32 in one lane: 34
+    orientations, the first 17 twice over, give the flags that the walk
+    with its exit gives over the 17, and so does the quat-major walk."""
+    fh, _, centers, pv = _tall_scene(13)
+    rpy = np.random.default_rng(13).uniform(-0.3, 0.3, (17, 3)).astype(
+        np.float32)
+    q17 = np.array(jq.from_rpy(rpy[:, 0], rpy[:, 1], rpy[:, 2]), np.float32)
+    q17[0] = [1, 0, 0, 0]
+    few = slice(0, 4)
+    centers, pv = centers[few], pv[few]
+    robot = trobot.get_moonbot_robot()
+    lv = _Level(robot, fh, q17, window=1024)
+    consts = cmd.dist_leg_constants(robot)
+    cellinfo = torch.cat([_t(centers), _t(pv)[:, None].float()], dim=1)
+    want = np.stack(_perleg_flags(cce.cell_eval_cm_perleg_plain(
+        lv.queue(centers, k, False), cellinfo, lv.legtab, lv.csr.xs,
+        lv.csr.ys, lv.csr.zs, consts, k), pv))
+    assert want[0].any() and want[1].any()
+    lv = _Level(robot, fh, np.concatenate([q17, q17]), window=1024)
+    q = lv.queue(centers, k, False)
+    assert q.role.shape[2] == 34
+    for name, words in _cm_walks(lv, q, centers, pv, k,
+                                 every=False).items():
+        np.testing.assert_array_equal(np.stack(_perleg_flags(words, pv)),
+                                      want, err_msg=name)
+
+
+def test_cm_perleg_words_do_not_depend_on_the_order_of_the_cells():
+    """K6c walks a cell in a warp of its own: the walk with its exit over a
+    permuted queue, scattered back, gives every cell's ten words (so that
+    a batch may also be checked in slices)."""
+    fh, quats, centers, pv = _tall_scene(12)
+    k = 4
+    robot = trobot.get_moonbot_robot()
+    lv = _Level(robot, fh, quats)
+    q = lv.queue(centers, k, False)
+    o = torch.from_numpy(np.random.default_rng(12).permutation(CELLS))
+    cellinfo = torch.cat([_t(centers), _t(pv)[:, None].float()], dim=1)
+    tail = (lv.legtab, lv.csr.xs, lv.csr.ys, lv.csr.zs,
+            cmd.dist_leg_constants(robot), k)
+    want = cce.cell_eval_cm_perleg_plain(q, cellinfo, *tail)
+    got = cce.cell_eval_cm_perleg_plain(
+        cce.CellQueue(q.cst[o], q.cln[o], q.role[o], q.tot[o], q.over),
+        cellinfo[o], *tail)
+    back = torch.empty_like(got)
+    back[o] = got
+    assert torch.equal(back, want)
+    halves = torch.cat([cce.cell_eval_cm_perleg_plain(
+        cce.CellQueue(q.cst[s], q.cln[s], q.role[s], q.tot[s], q.over),
+        cellinfo[s], *tail) for s in (slice(0, 3), slice(3, CELLS))])
+    assert torch.equal(halves, want)
