@@ -63,6 +63,16 @@ their cells); 15 ``python -m legmov_tpu_torch.map_bench`` with the
 dense-table solvers (``fused``, ``adaptive``) beside ``csr-dma`` on the same
 2,048 poses at 1 M and 10.24 M points (equal legs and quorum, a K3 step of
 each against its plain version, ``decide quorum`` equal to csr-dma's).
+16 the parallel layer (legmov_tpu_torch/parallel/) with its ranks as new
+processes sharing cuda:0 over gloo: the dry run (``dryrun.dryrun_cases``) at
+2 and 4 ranks, every sharded result equal to the unsharded call bit for bit
+on every rank, each path's kernels launched; the depth-7 moon solve of phase
+8 with ``mesh=`` over 2 ranks under both rules, equal to phase 8's record
+bit for bit with 8 host synchronisations and 8 collectives on each rank;
+``multihost_dryrun`` (small and ``--scale``) and ``scaling_bench`` at 1 and
+2 ranks, each wall beside the single-rank one (ranks on one card measure
+contention, not scaling); 17 ``solver_fuzz`` (12 trials) and ``hier_fuzz``
+(8 trials) on the card, every trial line printed, 0 FAIL.
 Phase 6 also holds the native host runtime's CSR sort and bucket table to
 their numpy versions and the device CSR build to the host one, element for
 element.  Phase 8 also holds each deep solve's
@@ -71,8 +81,10 @@ element.  Phase 8 also holds each deep solve's
 at an eighth of its cell batch: the count does not grow with the deepest
 level's batches.
 
-``--phases 1,8,9,10,11`` runs a subset (1 is always run); ``--quick`` cuts
-phase 8's deep solves to a quarter of the box, for a first look at a new
+``--phases 1,8,9,10,11`` runs a subset (1 is always run; ``--phases
+1,16,17`` is a short look at the parallel layer and the fuzzers); ``--quick``
+cuts phase 8's deep solves (and phase 16's) to a quarter of the box, for a
+first look at a new
 kernel; ``--against`` (an earlier ``cell_kernels.cu``, phase 10) and
 ``--against-multileg`` (an earlier ``multileg_kernels.cu``, phases 5 and 7)
 time another build's kernels in turns with this tree's on the same inputs
@@ -99,6 +111,7 @@ import io
 import json
 import os
 import re
+import signal
 import statistics
 import subprocess
 import sys
@@ -132,6 +145,8 @@ from legmov_tpu_torch.ops import cuda_multileg_dist as cmd
 from legmov_tpu_torch.ops import quaternion as quat
 from legmov_tpu_torch.ops import trig32
 from legmov_tpu_torch import native
+from legmov_tpu_torch import dryrun, hier_fuzz, profiling, solver_fuzz
+from legmov_tpu_torch.profiling import kernel_clock
 from legmov_tpu_torch.models import adaptive_field as af
 from legmov_tpu_torch.ops.csr_grid import (
     ball_columns,
@@ -1060,54 +1075,8 @@ KERNEL_IDS = {"reachability": "K1", "distance": "K2",
               "item_cells_shared": "K5 cell driver (shared rule)",
               "cell_quat_major": "K6a",
               "cell_shared": "K6b", "cell_cm_perleg": "K6c"}
-LAUNCHERS = {  # kernel -> (its library, its C launcher)
-    "reachability": (ck._library, "legmov_reachability"),
-    "distance": (ck._library, "legmov_distance"),
-    "distance_cells": (ck._library, "legmov_distance_cells"),
-    "multileg": (cm._library, "legmov_multileg"),
-    "csr_window": (cm._library, "legmov_csr_window"),
-    "csr_round": (cm._library, "legmov_csr_round"),
-    "item": (cmd.library, "legmov_item"),
-    "item_cells": (cmd.library, "legmov_item_cells"),
-    "cell_quat_major": (cmd.library, "legmov_cell_quat_major"),
-    "cell_shared": (cmd.library, "legmov_cell_shared"),
-    "cell_cm_perleg": (cmd.library, "legmov_cell_cm_perleg"),
-}
 #: (kernel, path) -> launches, summed kernel ms, summed bound ms (or None)
 PATH_TIMES = {}
-
-
-@contextlib.contextmanager
-def kernel_clock(kernels):
-    """Record a pair of CUDA events around every call of the C launchers of
-    ``kernels`` inside the block: the events enclose the kernel's enqueue
-    and nothing of the wrapper's host work, so on a host-bound path the
-    interval is the kernel's own time and not the host's.  Yields kernel ->
-    list of (start, end, launcher arguments); read them after the path's
-    last synchronisation."""
-    recs = {key: [] for key in kernels}
-    saved = []
-    for key in kernels:
-        get_lib, fname = LAUNCHERS[key]
-        lib = get_lib()
-        real = getattr(lib, fname)
-
-        def timed(*args, _real=real, _rec=recs[key]):
-            e0 = torch.cuda.Event(enable_timing=True)
-            e1 = torch.cuda.Event(enable_timing=True)
-            e0.record()
-            err = _real(*args)
-            e1.record()
-            _rec.append((e0, e1, args))
-            return err
-
-        setattr(lib, fname, timed)
-        saved.append((lib, fname, real))
-    try:
-        yield recs
-    finally:
-        for lib, fname, real in saved:
-            setattr(lib, fname, real)
 
 
 def report_clock(path, recs, bounds=None, keep=True):
@@ -4056,10 +4025,199 @@ def phase_dense_tables(terrain10):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phases 16 and 17: the parallel layer and the fuzzers
+# ---------------------------------------------------------------------------
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+#: kernels each new path must launch
+DRYRUN_KERNELS = ("reachability", "distance", "distance_cells", "multileg",
+                  "csr_round", "item_cells", "cell_quat_major", "cell_shared")
+MESH_KERNELS = {"per-leg": ("distance_cells", "cell_quat_major"),
+                "shared": ("distance_cells", "cell_shared")}
+FUZZ_KERNELS = {"solver_fuzz": ("multileg", "csr_round"),
+                "hier_fuzz": ("distance_cells", "cell_quat_major",
+                              "cell_shared")}
+
+
+def rank_paths(path, res, names):
+    """Launches and summed kernel ms of the cases ``names`` of a
+    ``dryrun.spawn`` result, summed over its ranks, kept in PATH_TIMES."""
+    sums = {}
+    for r in res:
+        for name in names:
+            case = r["cases"][name]
+            for key, n in case["launches"].items():
+                v = sums.setdefault(key, {"launches": 0, "ms": 0.0,
+                                          "bound_ms": None})
+                v["launches"] += n
+                v["ms"] += case["kernel_ms"].get(key, 0.0)
+    for key, v in sums.items():
+        PATH_TIMES[key, path] = v
+    say(f"    kernel time on {path} (summed over {len(res)} ranks): "
+        + "; ".join(f"{KERNEL_IDS[k]} {v['launches']} launches "
+                    f"{v['ms']:.3f} ms" for k, v in sorted(sums.items())))
+    return sums
+
+
+def run_module(*argv, timeout=600):
+    """``python -m <argv>`` from the repository's root; its output lines
+    are printed, and a non-zero exit fails the run."""
+    t0 = time.perf_counter()
+    # a session of its own: at the time limit the module and every process
+    # it started are stopped together
+    p = subprocess.Popen([sys.executable, "-m", *argv], cwd=REPO, text=True,
+                         stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                         start_new_session=True)
+    try:
+        out, err = p.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(p.pid, signal.SIGKILL)
+        out, err = p.communicate()
+    for line in (out + err).strip().splitlines():
+        say("    " + line)
+    check(p.returncode == 0, f"python -m {' '.join(argv)} exited "
+          f"{p.returncode}")
+    return out, time.perf_counter() - t0
+
+
+def phase_parallel(terrain, deep, phase8, smi):
+    """The parallel layer on the card, with its ranks as new processes
+    sharing cuda:0 over gloo."""
+    say("phase 16: the parallel layer (legmov_tpu_torch/parallel/), ranks "
+        "on cuda:0 over gloo: they share one card, so this checks the "
+        "splits, the collectives and the bits with the real kernels, not "
+        f"multi-card scaling ({smi})")
+    robot = make_robot(QUAD_MOUNTS)
+    box, depth, min_box = (float(deep[1]), int(deep[3]), float(deep[5]))
+    cfg = dict(box_center=tuple(np.median(terrain, axis=0).tolist()),
+               box_size=(box,) * 3, max_depth=depth, min_box=(min_box,) * 3,
+               enable_rot_below=50.0, legs_for_stability=4)
+    modes = ("per-leg", "shared")
+    single = {}
+    if phase8 is None:
+        # phase 8 did not run: the single-rank solves run here
+        for mode in modes:
+            t0 = time.perf_counter()
+            rec = hs.solve_positionability(
+                terrain, robot, SolverConfig(**cfg), cell_batch=1024,
+                shared_foothold=mode == "shared")
+            single[mode] = (rec, time.perf_counter() - t0)
+    else:
+        single = phase8
+    cases = [dict(name=f"mesh solve {mode}", kind="solve", footholds=terrain,
+                  robot=robot, cfg=cfg, single=False,
+                  kw=dict(cell_batch=1024, shared_foothold=mode == "shared"))
+             for mode in modes]
+    t0 = time.perf_counter()
+    res = dryrun.spawn(dryrun.dryrun_cases(2) + cases, 2, clock=True)
+    say(f"  dryrun --ranks 2 and the mesh solves: {time.perf_counter() - t0:.1f}"
+        " s with the spawn of 2 ranks")
+    for line in dryrun.summary(res):
+        say("    " + line)
+    names = [c["name"] for c in dryrun.dryrun_cases(2)]
+    sums = rank_paths("python -m legmov_tpu_torch.dryrun --ranks 2", res, names)
+    for key in DRYRUN_KERNELS:
+        check(sums.get(key, {}).get("launches", 0) > 0,
+              f"dryrun --ranks 2: {key} was launched no time")
+    want = SOLVE_COUNTS
+    for mode in modes:
+        name = f"mesh solve {mode}"
+        rec, t_single = single[mode]
+        for r in res:
+            case = r["cases"][name]
+            info = case["info"]
+            got = case["values"][0]
+            check(all(np.array_equal(g, getattr(rec, f))
+                      for g, f in zip(got, dryrun.RECORD)),
+                  f"{name}: rank {r['rank']}'s record differs from the "
+                  "single-rank solve's")
+            check(info["host_syncs"] == info["levels"]
+                  and info["collectives"] == info["levels"],
+                  f"{name}: rank {r['rank']}: {info}")
+            if deep == DEEP:
+                check(info["levels"] == 8 and info["host_syncs"] == 8,
+                      f"{name}: rank {r['rank']}: {info['host_syncs']} host "
+                      "syncs, not 8")
+                check((info["cells"], info["valid"], info["edge"])
+                      == want[mode], f"{name}: counts {info}")
+        walls = [r["cases"][name]["sharded_s"] for r in res]
+        say(f"  {name} over 2 ranks ({' '.join(deep)}): cells "
+            f"{info['cells']} valid {info['valid']} edge {info['edge']}, "
+            f"equal to the single-rank record bit for bit on both ranks; "
+            f"host syncs {[r['cases'][name]['info']['host_syncs'] for r in res]}"
+            f", collectives {[r['cases'][name]['info']['collectives'] for r in res]}"
+            f"; wall {max(walls):.3f} s (ranks {', '.join(f'{w:.3f}' for w in walls)})"
+            f" beside {t_single:.3f} s single-rank"
+            + (" (phase 8)" if phase8 is not None else ""))
+        sums = rank_paths(f"cli solve {' '.join(deep)} --mode {mode}, mesh of "
+                          "2 ranks", res, [name])
+        for key in MESH_KERNELS[mode]:
+            check(sums.get(key, {}).get("launches", 0) > 0,
+                  f"{name}: {key} was launched no time")
+    res = None
+    t0 = time.perf_counter()
+    res4 = dryrun.spawn(dryrun.dryrun_cases(4), 4, clock=True)
+    say(f"  dryrun --ranks 4: {time.perf_counter() - t0:.1f} s with the spawn "
+        "of 4 ranks")
+    for line in dryrun.summary(res4):
+        say("    " + line)
+    sums = rank_paths("python -m legmov_tpu_torch.dryrun --ranks 4", res4,
+                      list(res4[0]["cases"]))
+    for key in DRYRUN_KERNELS:
+        check(sums.get(key, {}).get("launches", 0) > 0,
+              f"dryrun --ranks 4: {key} was launched no time")
+    for extra, limit in (((), 120), (("--scale",), 300)):
+        out, wall = run_module("legmov_tpu_torch.multihost_dryrun", *extra,
+                               timeout=limit)
+        check("MULTIHOST OK" in out, "multihost_dryrun did not end OK")
+        say(f"  multihost_dryrun {' '.join(extra)}: {wall:.1f} s with its two "
+            "processes")
+    # 256 poses: the plain path builds every pose's workspace tables with
+    # launches of their own, host-bound on the card
+    out, wall = run_module("legmov_tpu_torch.scaling_bench", "--max-ranks",
+                           "2", "--poses", "256", "--reps", "3", timeout=300)
+    runs = json.loads(out.strip().splitlines()[-1])["results"]
+    check([r["ranks"] for r in runs] == [1, 2]
+          and runs[0]["feasible"] == runs[1]["feasible"],
+          f"scaling_bench: {runs}")
+    say(f"  scaling_bench: {wall:.1f} s; 1 rank {runs[0]['seconds']:.4f} s, "
+        f"2 ranks on the one card {runs[1]['seconds']:.4f} s (contention, not "
+        "scaling)")
+
+
+def phase_fuzz():
+    """Both fuzzers in this process, on the card: every trial line."""
+    say("phase 17: the solver fuzzers on the card (kernels against the "
+        "exhaustive path and the eager evaluator)")
+    for name, mod, argv in (("solver_fuzz", solver_fuzz, ("--trials", "12")),
+                            ("hier_fuzz", hier_fuzz, ("--trials", "8"))):
+        for m, f in profiling.COUNTERS.values():
+            getattr(m, f).launches = 0
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with kernel_clock() as recs, contextlib.redirect_stdout(buf):
+            rc = mod.main(list(argv))
+        wall = time.perf_counter() - t0
+        launches = profiling.launch_counts()
+        lines = buf.getvalue().strip().splitlines()
+        for line in lines:
+            say("    " + line)
+        check(rc == 0 and not any(l.startswith("FAIL") for l in lines),
+              f"{name}: a trial failed")
+        path = f"python -m legmov_tpu_torch.{name} {' '.join(argv)}"
+        report_clock(path, recs)
+        for key in FUZZ_KERNELS[name]:
+            check(launches[key] > 0 and launches[key] == len(recs[key]),
+                  f"{name}: {key} launches {launches[key]}")
+        say(f"  {name}: {lines[-1]} in {wall:.1f} s; launches "
+            + json.dumps({k: n for k, n in launches.items() if n}))
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
-                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15",
+                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17",
                     help="comma-separated phases to run (1 always runs; 3 "
                     "and 4 need 2, 7 needs 6, 9, 10 and 11 need 8)")
     ap.add_argument("--quick", action="store_true",
@@ -4085,7 +4243,7 @@ def main(argv=None):
                     "tree's; repeatable")
     args = ap.parse_args(argv)
     on = {int(p) for p in args.phases.split(",")} | {1}
-    whole = on >= set(range(1, 16)) and not args.quick
+    whole = on >= set(range(1, 18)) and not args.quick
 
     t_start = time.perf_counter()
     clock = [t_start]
@@ -4114,8 +4272,8 @@ def main(argv=None):
             took(5)
         if 8 in on:
             solve = phase_cli_solve(data, args.quick)
-            terrain = lio.load_points(os.path.join(data, "numpy_input_t"))
             took(8)
+        terrain = lio.load_points(os.path.join(data, "numpy_input_t"))
     if 3 in on:
         worst = phase_compare(cli_grid, cli_results, leg_others)
         took(3)
@@ -4135,6 +4293,8 @@ def main(argv=None):
         took(11)
     solve_launches_ = solve["launches"] if solve else None
     cm_turns = solve["cm_every_batch"] if solve else None
+    phase8 = ({mode: (solve[mode]["record"], solve["seconds"][mode])
+               for mode in ("per-leg", "shared")} if solve else None)
     solve = None
     torch.cuda.empty_cache()
     if 6 in on:
@@ -4167,6 +4327,14 @@ def main(argv=None):
         torch.cuda.empty_cache()
         dense = phase_dense_tables(terrain10)
         took(15)
+    terrain10 = None
+    torch.cuda.empty_cache()
+    if 16 in on:
+        phase_parallel(terrain, QUARTER if args.quick else DEEP, phase8, smi)
+        took(16)
+    if 17 in on:
+        phase_fuzz()
+        took(17)
 
     say(smi)
     if not whole:

@@ -349,6 +349,7 @@ def solve_positionability(
     csr_cell_chunk: int = 0,
     device=None,
     stats: dict | None = None,
+    mesh=None,
 ) -> CellRecord:
     """Breadth-first hierarchical positionability solve.
 
@@ -397,15 +398,32 @@ def solve_positionability(
     (the quat-major kernel for both rules), ``LEGMOV_CSR_CHUNK_MASKS=0``
     (per-slab instead of per-chunk role masks), ``LEGMOV_HIER_CS_FRAC``
     (CSR cell size as a fraction of the reach).  Flags are the same under
-    each.  ``stats``, when given a dict, receives ``host_syncs``, ``levels``
-    and a ``per_level`` list.
+    each.  ``stats``, when given a dict, receives ``host_syncs``, ``levels``,
+    ``collectives`` and a ``per_level`` list.
+
+    ``mesh``: a parallel/sharding.py ``make_mesh`` mesh.  Every rank runs
+    this host loop; a level's cells split over the ranks in contiguous
+    ranges, each rank dispatches its range and reads its flags in the
+    level's one fetch, and one ``all_gather`` of the packed host flags (the
+    overflow words ORed) gives every rank the whole level: one collective a
+    level, counted in ``stats["collectives"]``, and no extra device read.
+    The record is the ``mesh=None`` record bit for bit.  The cells are
+    evaluated on ``mesh.device``.
     """
     if backend not in ("auto", "cuda", "torch"):
         raise ValueError(f"backend must be auto, cuda or torch, got {backend!r}")
     if candidates not in ("auto", "dense", "csr"):
         raise ValueError(
             f"candidates must be auto, dense or csr, got {candidates!r}")
-    dev = resolve_device(device)
+    if mesh is not None:
+        if device is not None and torch.device(device).type != mesh.device.type:
+            raise ValueError(f"device {device} but the mesh computes on "
+                             f"{mesh.device}")
+        dev = mesh.device
+        ranks, me = mesh.size, mesh.rank
+    else:
+        dev = resolve_device(device)
+        ranks, me = 1, 0
     if backend == "cuda" and dev.type != "cuda":
         raise ValueError("backend='cuda' needs a CUDA device")
     profile = profile or bool(os.environ.get("LEGMOV_HIER_PROFILE"))
@@ -476,7 +494,7 @@ def solve_positionability(
         csr_env = dict(csr=csr, starts_h=parts[3], origin_h=parts[4],
                        cell_size=cs_d, fns={})
 
-    n_syncs = 0
+    n_syncs = n_collectives = 0
     per_level: list[dict] = []
     if profile:
         print(
@@ -504,6 +522,11 @@ def solve_positionability(
         margin = 0.0 if rot_active else cfg.enable_rot_below / 3.0
 
         C = children.shape[0]
+        # this rank's contiguous range of the level's cells (all of them
+        # without a mesh)
+        share = -(-C // ranks)
+        r_lo = min(me * share, C)
+        r_hi = min(r_lo + share, C)
         level = dict(depth=depth, cells=C, rot=rot_active)
         pending: list[tuple[int, int, torch.Tensor]] = []
         audit_parts: list[torch.Tensor] = []
@@ -527,7 +550,7 @@ def solve_positionability(
             # turns (chip_smoke.py phase 8)
             chunk_major = shared_foothold and not _env_flag(
                 "LEGMOV_CSR_QUAT_MAJOR", 0)
-            audit = _env_flag("LEGMOV_HIER_AUDIT", 0)
+            audit = _env_flag("LEGMOV_HIER_AUDIT", 0) and ranks == 1
             chunk_masks = _env_flag("LEGMOV_CSR_CHUNK_MASKS", 1)
             key = (chunk_major, chunk_masks)
             if key not in csr_env["fns"]:
@@ -545,11 +568,11 @@ def solve_positionability(
             legtab, rmounts, reach_l_d, elong_d = _upload(
                 dev, legtab_h.numpy(), rmounts_h.numpy(), reach_l_h.numpy(),
                 elong_np)
-            batch = min(csr_cell_chunk, C)
+            batch = max(1, min(csr_cell_chunk, r_hi - r_lo))
             level.update(kind="csr", batch=batch, window=csr_window,
                          maxch=0)
-            for s in range(0, C, batch):
-                e = min(s + batch, C)
+            for s in range(r_lo, r_hi, batch):
+                e = min(s + batch, r_hi)
                 maxch = cce.slab_queue_host_max(
                     children[s:e], elong_np, csr_env["starts_h"],
                     csr_env["origin_h"], csr.cell_size, csr.dims, csr_window)
@@ -568,7 +591,8 @@ def solve_positionability(
         else:
             # power-of-two cell batches, so that tiny levels do not pay for
             # the full batch size
-            batch = min(cell_batch, 1 << (max(C - 1, 1)).bit_length())
+            batch = min(cell_batch,
+                        1 << (max(r_hi - r_lo - 1, 1)).bit_length())
             sub_bytes = 0
             level_quats = quats if rot_active else quats[:1]
             if not fused:
@@ -577,8 +601,8 @@ def solve_positionability(
                 ev = fast_rot_eval
             else:
                 ev = fast_eval
-            for s in range(0, C, batch):
-                e = min(s + batch, C)
+            for s in range(r_lo, r_hi, batch):
+                e = min(s + batch, r_hi)
                 # batch-local foothold subset (the octree's elongated-box
                 # pruning at batch granularity,
                 # several_leg_octree.cu:76-82): only points within the
@@ -609,26 +633,31 @@ def solve_positionability(
         # ONE packed tensor per level, fetched after the whole level is
         # dispatched: the level's only read of the device
         t_fetch0 = time.perf_counter()
-        packed = [torch.cat([x.reshape(-1) for _, _, f in pending for x in f])
-                  .to(torch.int64)]
-        packed += over_parts and [torch.cat(over_parts).to(torch.int64)]
-        packed += audit_parts
-        flat = torch.cat(packed).cpu().numpy()
-        n_syncs += 1
-        valid = np.zeros(C, bool)
-        edge = np.zeros(C, bool)
-        leaf_ok = np.zeros(C, bool)
+        flat = np.zeros(0, np.int64)
+        if pending:
+            packed = [torch.cat([x.reshape(-1) for _, _, f in pending
+                                 for x in f]).to(torch.int64)]
+            packed += over_parts and [torch.cat(over_parts).to(torch.int64)]
+            packed += audit_parts
+            flat = torch.cat(packed).cpu().numpy()
+            n_syncs += 1
+        flags = np.zeros((C, 3), bool)  # valid, edge, leaf_ok
         pos = 0
         for s, n, _ in pending:
-            f = flat[pos:pos + 3 * n].reshape(3, n).astype(bool)
+            flags[s:s + n] = flat[pos:pos + 3 * n].reshape(3, n).T
             pos += 3 * n
-            valid[s:s + n], edge[s:s + n], leaf_ok[s:s + n] = f
-        if over_parts:
-            if flat[pos:pos + len(over_parts)].any():
-                raise RuntimeError(
-                    "csr_cell_eval queue truncated: the host's slab sizing "
-                    "and the device's diverged")
-            pos += len(over_parts)
+        over = bool(flat[pos:pos + len(over_parts)].any())
+        pos += len(over_parts)
+        if ranks > 1:
+            from legmov_tpu_torch.parallel.sharding import gather_level
+
+            flags, over = gather_level(mesh, flags[r_lo:r_hi], over, C)
+            n_collectives += 1
+        if over:
+            raise RuntimeError(
+                "csr_cell_eval queue truncated: the host's slab sizing "
+                "and the device's diverged")
+        valid, edge, leaf_ok = flags.T
         t_fetch = time.perf_counter() - t_fetch0
         level.update(batches=len(pending), dispatch_s=t_disp,
                      fetch_s=t_fetch,
@@ -688,7 +717,7 @@ def solve_positionability(
         )
     if stats is not None:
         stats.update(host_syncs=n_syncs, levels=len(per_level),
-                     per_level=per_level)
+                     collectives=n_collectives, per_level=per_level)
     cs = np.concatenate([o[0] for o in out])
     hs = np.concatenate([o[1] for o in out])
     vs = np.concatenate([o[2] for o in out])

@@ -29,7 +29,10 @@ import torch
 from legmov_tpu_torch.config import resolve_device
 from legmov_tpu_torch.models.leg import LegDimensions
 from legmov_tpu_torch.models.robot import leg_count
-from legmov_tpu_torch.ops.orientation import reachability_oriented_poses
+from legmov_tpu_torch.ops.orientation import (
+    oriented_workspaces,
+    reachability_oriented_poses,
+)
 from legmov_tpu_torch.ops.quaternion import IDENTITY
 
 #: elements of the ``[chunk, L, F]`` tensor a call keeps alive at once (the
@@ -57,18 +60,23 @@ def reachable_legs(
     """
     P, F = body_pos.shape[0], footholds.shape[0]
     L = leg_count(robot)
-    if body_quat is None:
-        body_quat = _identity_quats(P, body_pos.device)
     out = torch.zeros((P, L), dtype=torch.bool, device=body_pos.device)
     if P == 0 or F == 0:
         return out
+    ws = None
+    if body_quat is None:
+        body_quat = _identity_quats(P, body_pos.device)
+        # one orientation for every pose: its workspace tables are built
+        # once and broadcast over the poses (building them is per pose)
+        ws = oriented_workspaces(body_quat[:1], robot)
     if not chunk:
         chunk = max(1, _CHUNK_ELEMENTS // (L * F))
     for lo in range(0, P, chunk):
         pos = body_pos[lo:lo + chunk]
         rel = footholds[None, :, :] - pos[:, None, :]
         out[lo:lo + chunk] = torch.any(
-            reachability_oriented_poses(rel, body_quat[lo:lo + chunk], robot),
+            reachability_oriented_poses(rel, body_quat[lo:lo + chunk], robot,
+                                        ws),
             dim=-1)
     return out
 

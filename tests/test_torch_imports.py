@@ -46,6 +46,11 @@ def test_import_pulls_in_neither_jax_nor_legmov_tpu():
         "import legmov_tpu_torch.reach_probe, legmov_tpu_torch.ops.trig32\n"
         "import legmov_tpu_torch.models.adaptive_field\n"
         "import legmov_tpu_torch.oracle.ik_oracle, legmov_tpu_torch.native\n"
+        "import legmov_tpu_torch.parallel, legmov_tpu_torch.parallel.sharding\n"
+        "import legmov_tpu_torch.parallel.multihost, legmov_tpu_torch.profiling\n"
+        "import legmov_tpu_torch.dryrun, legmov_tpu_torch.multihost_dryrun\n"
+        "import legmov_tpu_torch.scaling_bench, legmov_tpu_torch.solver_fuzz\n"
+        "import legmov_tpu_torch.hier_fuzz\n"
         "from legmov_tpu_torch.ops.cuda_multileg import (\n"
         "    make_adaptive_grid_solver, make_fused_grid_solver, pad_grid_soa)\n"
         "bad = [m for m in set(sys.modules) - before if m == 'jax' or m.startswith('jax.')"
@@ -83,19 +88,33 @@ def test_same_layout_as_jax_package():
                 "ops/positionability.py", "ops/solve_schedule.py",
                 "ops/grid.py", "ops/csr_grid.py", "ops/csr_cell_eval.py",
                 "models/hier_solver.py", "models/adaptive_field.py",
-                "oracle/ik_oracle.py", "native.py"):
+                "oracle/ik_oracle.py", "native.py", "parallel/__init__.py",
+                "parallel/sharding.py", "parallel/multihost.py",
+                "profiling.py"):
         assert os.path.exists(os.path.join(REPO, "legmov_tpu", rel)), rel
         assert os.path.exists(os.path.join(PKG, rel)), rel
     import legmov_tpu
     import legmov_tpu_torch
 
     assert set(legmov_tpu_torch.__all__) == set(legmov_tpu.__all__)
+    import legmov_tpu.parallel
+    import legmov_tpu_torch.parallel
+
+    assert legmov_tpu_torch.parallel.__all__ == legmov_tpu.parallel.__all__
     # the kernels' modules are named after their route
     for j, t in (("ops/pallas_kernels.py", "ops/cuda_kernels.py"),
                  ("ops/pallas_multileg.py", "ops/cuda_multileg.py"),
                  ("ops/pallas_multileg_dist.py", "ops/cuda_multileg_dist.py"),
                  ("../tools/map_solve_bench.py", "map_bench.py"),
-                 ("../tools/reach_kernel_probe.py", "reach_probe.py")):
+                 ("../tools/reach_kernel_probe.py", "reach_probe.py"),
+                 # the tools and dry runs of the parallel layer, and the
+                 # fuzzers (the on-chip fuzz is the solver fuzz on a card)
+                 ("../__graft_entry__.py", "dryrun.py"),
+                 ("../tools/multihost_dryrun.py", "multihost_dryrun.py"),
+                 ("../tools/scaling_bench.py", "scaling_bench.py"),
+                 ("../tools/solver_fuzz.py", "solver_fuzz.py"),
+                 ("../tools/onchip_fuzz.py", "solver_fuzz.py"),
+                 ("../tools/hier_fuzz.py", "hier_fuzz.py")):
         assert os.path.exists(os.path.join(REPO, "legmov_tpu", j)), j
         assert os.path.exists(os.path.join(PKG, t)), t
 
@@ -323,3 +342,54 @@ def test_map_bench_runs_on_the_cpu_when_asked(capsys):
     assert line["device"] == "cpu" and line["device_csr"] is True
     assert 0 < line["feasible_poses"] <= 24
     assert line["kernel_launches_per_chunk"] == 0
+
+
+def test_parallel_layer_and_tools_need_a_card_by_default():
+    if torch.cuda.is_available():
+        pytest.skip("checks the no-card case")
+    from legmov_tpu_torch import (
+        dryrun,
+        hier_fuzz,
+        multihost_dryrun,
+        scaling_bench,
+        solver_fuzz,
+    )
+    from legmov_tpu_torch.parallel import make_mesh, multihost
+
+    for fn in (lambda: dryrun.main(["--ranks", "2"]),
+               lambda: multihost_dryrun.main([]),
+               lambda: scaling_bench.main([]),
+               lambda: solver_fuzz.main(["--trials", "1"]),
+               lambda: hier_fuzz.main(["--trials", "1"]),
+               lambda: make_mesh(),
+               lambda: multihost.rank_device(),
+               lambda: multihost.initialize_distributed(),
+               lambda: multihost.choose_backend(),
+               lambda: multihost.run_ranks(dryrun.run_cases, 2, [], 1)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            fn()
+    assert multihost.choose_backend("cpu") == "gloo"
+    assert multihost.rank_device("cpu") == torch.device("cpu")
+
+
+def test_spawned_ranks_import_neither_jax_nor_legmov_tpu(tmp_path):
+    """Two CPU ranks run a mesh solve and the point paths with ``jax`` and
+    ``legmov_tpu`` made unimportable (packages that raise, first on the
+    path, which spawned processes inherit)."""
+    for name in ("jax", "jaxlib", "legmov_tpu"):
+        (tmp_path / name).mkdir()
+        (tmp_path / name / "__init__.py").write_text(
+            f"raise ImportError('{name} is not for the port')\n")
+    code = (
+        "from legmov_tpu_torch import dryrun\n"
+        "cases = [c for c in dryrun.dryrun_cases(2)\n"
+        "         if c['name'] in ('reachability', 'positionable', 'solve shared')]\n"
+        "res = dryrun.spawn(cases, 2, device='cpu', timeout=120)\n"
+        "print('RANKS', len(res), sorted(res[1]['cases']))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(tmp_path), REPO]))
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, env=env, cwd=str(tmp_path), timeout=200)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert ("RANKS 2 ['positionable', 'reachability', 'solve shared']"
+            in r.stdout)
