@@ -41,7 +41,8 @@ the device nowhere in their dispatch, and print their ``dispatch_s``);
 9 the gates of the solve on samples of real batches of its deepest level,
 quadruped and hexapod (every cell kernel form against its plain version,
 counters included, against the dense item kernel and against the eager
-evaluator; K6c against its plain version on the whole per-leg batch);
+evaluator; K6c against its plain version on every 8th cell of the whole
+per-leg batch);
 10 the item kernel, its cell driver (special batches, phase 10's
 batch and the largest batch of each dense solve of phase 8, each timed in
 turns with the item kernel's chunk loop that it replaced) and the three cell
@@ -72,7 +73,22 @@ bit for bit with 8 host synchronisations and 8 collectives on each rank;
 ``multihost_dryrun`` (small and ``--scale``) and ``scaling_bench`` at 1 and
 2 ranks, each wall beside the single-rank one (ranks on one card measure
 contention, not scaling); 17 ``solver_fuzz`` (12 trials) and ``hier_fuzz``
-(8 trials) on the card, every trial line printed, 0 FAIL.
+(8 trials) on the card, every trial line printed, 0 FAIL; 18 the viewers
+and the N-sweep, each through its ``python -m`` entry point:
+``ref_image_check`` at tibia 135 and 160 (the landmarks equal to
+``bdata/refcheck*/landmarks.json``, K1 and K2 on both slices equal to their
+plain versions bit for bit), ``live_view`` headless at 1920 x 1080 (60
+frames, its fps, one K2 launch a frame, the middle frame equal to the plain
+version's bit for bit), ``visualize_solve`` at its defaults (K3 through the
+fused dense-table solver over 3,200 poses and 1,048,576 footholds, its mask
+equal to ``grid_reachable_legs`` on the card, no overflow),
+``circle_figure`` for both legs (the card's validity grid equal to the
+CPU's), and ``bench_sweep`` (K1 and K2 over the reference protocol's 11
+sizes up to 66,160,650 points, the plain path on the card and on the CPU,
+the oracle twin and the LM-IK baseline capped small) with ``bench_report``
+over its CSVs (speed-ups over ``BASELINE.md``'s GTX 1080 Ti and
+i5-12600K figures).  Whether matplotlib is present, and so whether images
+were written, is printed.
 Phase 6 also holds the native host runtime's CSR sort and bucket table to
 their numpy versions and the device CSR build to the host one, element for
 element.  Phase 8 also holds each deep solve's
@@ -82,7 +98,8 @@ at an eighth of its cell batch: the count does not grow with the deepest
 level's batches.
 
 ``--phases 1,8,9,10,11`` runs a subset (1 is always run; ``--phases
-1,16,17`` is a short look at the parallel layer and the fuzzers); ``--quick``
+1,16,17`` is a short look at the parallel layer and the fuzzers, ``--phases
+1,18`` at the viewers and the sweep); ``--quick``
 cuts phase 8's deep solves (and phase 16's) to a quarter of the box, for a
 first look at a new
 kernel; ``--against`` (an earlier ``cell_kernels.cu``, phase 10) and
@@ -107,6 +124,7 @@ import collections
 import contextlib
 import ctypes
 import hashlib
+import importlib.util
 import io
 import json
 import os
@@ -146,6 +164,9 @@ from legmov_tpu_torch.ops import quaternion as quat
 from legmov_tpu_torch.ops import trig32
 from legmov_tpu_torch import native
 from legmov_tpu_torch import dryrun, hier_fuzz, profiling, solver_fuzz
+from legmov_tpu_torch import (bench_report, bench_sweep, circle_figure,
+                              live_view, ref_image_check,
+                              visualize_solve)
 from legmov_tpu_torch.profiling import kernel_clock
 from legmov_tpu_torch.models import adaptive_field as af
 from legmov_tpu_torch.ops.csr_grid import (
@@ -160,6 +181,7 @@ from legmov_tpu_torch.ops.csr_grid import (
 )
 from legmov_tpu_torch.ops.grid import (
     bucket_grid_numpy,
+    build_grid,
     cell_size_for,
     neighbor_offsets,
 )
@@ -2713,7 +2735,7 @@ def phase_solve_gates(solve, terrain):
 
         base = None
         # the rule's own form first; the quadruped's K6c is held to its plain
-        # version on the whole batch below, and to K6a on every batch of the
+        # version on a sample of the whole batch below, and to K6a on every batch of the
         # solve in phase 8
         for chunk_major in ((shared, not shared) if mode != "per-leg"
                             else (False,)):
@@ -2767,31 +2789,33 @@ def phase_solve_gates(solve, terrain):
     return out
 
 
-CM_SLICE = 32768  # cells a call of K6c's plain version takes on the card
+CM_STRIDE = 8  # every 8th cell of the batch: the plain version's sample
 
 
 def cm_whole_batch(b):
-    """K6c against its plain version on all ten words of every cell of the
-    captured per-leg batch; the plain version takes the batch in slices of
-    cells (a cell's words do not depend on the other cells)."""
+    """K6c on the whole captured per-leg batch, held against its plain
+    version on all ten words of every ``CM_STRIDE``-th cell (a cell's words
+    do not depend on the other cells).  The whole batch took the plain
+    version 30-35 s; the sample keeps phase 9 and the run in their time."""
     q, ci = b["queue"], b["cellinfo"]
     C = q.role.shape[0]
     tail = (b["legtab"], b["xs"], b["ys"], b["zs"], b["consts"], b["k"])
     got = cce.cell_eval_cm_perleg(q, ci, *tail, b["window"])
+    s = torch.arange(0, C, CM_STRIDE, device=got.device)
     t0 = time.perf_counter()
-    want = torch.cat([cce.cell_eval_cm_perleg_plain(
+    want = cce.cell_eval_cm_perleg_plain(
         cce.CellQueue(q.cst[s], q.cln[s], q.role[s], q.tot[s], q.over),
-        ci[s], *tail) for s in (slice(lo, lo + CM_SLICE)
-                                for lo in range(0, C, CM_SLICE))])
+        ci[s], *tail)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    bad = int((got != want).sum())
-    say(f"  K6c on the whole per-leg batch ({C} cells) against its plain "
-        f"version on all ten words: mismatches {bad}; the plain version "
-        f"{dt:.1f} s in slices of {CM_SLICE} cells")
+    bad = int((got[s] != want).sum())
+    say(f"  K6c on the whole per-leg batch ({C} cells), every {CM_STRIDE}th "
+        f"cell ({s.numel()}) against its plain version on all ten words: "
+        f"mismatches {bad}; the plain version {dt:.1f} s")
     check(bad == 0, f"K6c: {bad} mismatching words against its plain "
-          "version on the whole per-leg batch")
-    return {"cells": C, "mismatches": bad, "plain_s": dt}
+          "version on the sampled cells of the per-leg batch")
+    return {"cells": int(s.numel()), "batch_cells": C, "stride": CM_STRIDE,
+            "mismatches": bad, "plain_s": dt}
 
 
 def bound_of(n_bytes, n_ops):
@@ -2972,10 +2996,11 @@ def phase_cell_kernels(solve, gates, terrain, others=()):
             sample = (f"on {GATE_CELLS} cells with the queue build: kernel "
                       f"{gates['sample_ms'][form, mode]:.2f} ms, plain "
                       f"version {plain_ms:.1f} ms")
-        else:  # K6c: its plain version on the whole batch (phase 9)
+        else:  # K6c: its plain version on phase 9's sample of the batch
             plain_ms = gates["cm_whole"]["plain_s"] * 1e3
             plain_cells = gates["cm_whole"]["cells"]
-            sample = f"plain version on the batch {plain_ms:.1f} ms"
+            sample = (f"plain version on {plain_cells} cells of the batch "
+                      f"{plain_ms:.1f} ms")
         say(f"  {name} {ms:.4f} ms  bound {bd:.4f} ms ({by}; bytes "
             f"{t_b:.4f}, operations {t_o:.4f})  share of bound "
             f"{bd / ms:.3f}; queue build of the batch {ms_q:.2f} ms; "
@@ -4192,8 +4217,7 @@ def phase_fuzz():
         "exhaustive path and the eager evaluator)")
     for name, mod, argv in (("solver_fuzz", solver_fuzz, ("--trials", "12")),
                             ("hier_fuzz", hier_fuzz, ("--trials", "8"))):
-        for m, f in profiling.COUNTERS.values():
-            getattr(m, f).launches = 0
+        zero_counts()
         buf = io.StringIO()
         t0 = time.perf_counter()
         with kernel_clock() as recs, contextlib.redirect_stdout(buf):
@@ -4214,10 +4238,285 @@ def phase_fuzz():
             + json.dumps({k: n for k, n in launches.items() if n}))
 
 
+#: tibia length -> the committed landmarks of ref_image_check
+REFCHECK = {135.0: "bdata/refcheck/landmarks.json",
+            160.0: "bdata/refcheck_hist/landmarks.json"}
+LIVE_FRAMES = 60  # live_view's default, at its default 1920 x 1080
+VIEW_POINTS = 1_000_000  # visualize_solve's default terrain
+#: bench_sweep runs of phase 18, each with its own reps and largest size
+SWEEP_RUNS = (
+    ("--impl", "kernel", "--reps", "5"),
+    ("--impl", "plain", "--device", "cuda", "--reps", "2",
+     "--max-points", "16544544"),
+    ("--impl", "plain", "--device", "cpu", "--reps", "3",
+     "--max-points", "1034152"),
+    ("--impl", "oracle", "--device", "cpu", "--reps", "2",
+     "--max-points", "16166", "--cpu-point-cap", "200"),
+    ("--impl", "ik", "--device", "cpu", "--reps", "2",
+     "--max-points", "10560"),
+)
+SWEEP_SIZES = [72, 280, 1035, 4110, 16166, 64664, 258656, 1034152, 4136608,
+               16544544, 66160650]
+
+
+def zero_counts():
+    for m, f in profiling.COUNTERS.values():
+        getattr(m, f).launches = 0
+
+
+def quiet(fn, *a):
+    """``fn(*a)`` with its output kept; the lines are printed indented."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*a)
+    for line in buf.getvalue().strip().splitlines():
+        say("    " + line)
+    return out
+
+
+def dist_need_bound(inputs):
+    """K2's summed bound over launches on ``inputs`` [(x, y, z, consts)],
+    in launch order: the operations those points need."""
+    def bound(rec):
+        check(len(rec) == len(inputs), "K2's records and inputs differ")
+        return sum(bound_ms(x.numel(), DIST_BYTES_PER_POINT,
+                            ck.dist_flops_needed(x, y, z, c) / x.numel())[0]
+                   for x, y, z, c in inputs)
+    return bound
+
+
+def phase_ref_image_check(tmp, smi):
+    """``python -m legmov_tpu_torch.ref_image_check`` at tibia 135 and 160:
+    the landmarks equal to the committed records, K1's and K2's outputs on
+    both slices equal to their plain versions on the card bit for bit."""
+    for tibia, record in REFCHECK.items():
+        leg = get_m2_leg()
+        argv = ["--out", os.path.join(tmp, f"refcheck_{tibia:g}")]
+        if tibia != float(leg.tibia_length):
+            leg = leg._replace(tibia_length=np.float32(tibia))
+            argv += ["--tibia", f"{tibia:g}"]
+        zero_counts()
+        with kernel_clock(("reachability", "distance")) as recs:
+            report, arrays = quiet(ref_image_check.main, argv)
+        launches = profiling.launch_counts()
+        with open(os.path.join(REPO, record)) as f:
+            want = json.load(f)
+        with open(os.path.join(argv[1], "landmarks.json")) as f:
+            got = json.load(f)
+        check(got == report and got["tibia_length"] == tibia
+              and want.get("tibia_length", tibia) == tibia,
+              f"ref_image_check tibia {tibia:g}: {got}")
+        for name in ("side", "top"):
+            check(got[name] == want[name], f"ref_image_check tibia {tibia:g}, "
+                  f"{name}: {got[name]} against {record}'s {want[name]}")
+        inputs, bad = [], 0
+        for name, (pts, reach, vec) in arrays.items():
+            x, y, z = (torch.from_numpy(np.ascontiguousarray(pts[:, i])).to(DEV)
+                       for i in range(3))
+            dc = ck.dist_consts(leg)
+            inputs.append((x, y, z, dc))
+            want_r = ck.reachability_kernel_plain(x, y, z, ck.reach_consts(leg))
+            _, dx, dy, dz = ck.distance_kernel_plain(x, y, z, dc)
+            bad += int((torch.from_numpy(reach).to(DEV) != want_r).sum())
+            bad += int((~same_bits(torch.from_numpy(vec).to(DEV),
+                                   torch.stack([dx, dy, dz], -1))).sum())
+        check(bad == 0, f"ref_image_check tibia {tibia:g}: {bad} elements "
+              "differ from the plain versions")
+        check(launches["reachability"] == 2 == len(recs["reachability"])
+              and launches["distance"] == 2 == len(recs["distance"]),
+              f"ref_image_check: launches {launches}")
+        report_clock(f"python -m legmov_tpu_torch.ref_image_check "
+                     f"{' '.join(argv[2:])}".strip(), recs,
+                     {"reachability": reach_bound(leg),
+                      "distance": dist_need_bound(inputs)})
+        say(f"  ref_image_check tibia {tibia:g} ({smi}): landmarks equal to "
+            f"{record} on side and top (side notch {got['side'].get('notch_xz')}"
+            f", areas {got['side']['area_mm2']:g} / {got['top']['area_mm2']:g}"
+            f" mm^2); K1 and K2 on both slices ({arrays['side'][0].shape[0]} "
+            f"and {arrays['top'][0].shape[0]} points) equal to their plain "
+            "versions bit for bit")
+
+
+def phase_live_view(tmp, smi):
+    """``python -m legmov_tpu_torch.live_view`` headless at its defaults:
+    the fps, K2 launched once a frame (the warm one included), the middle
+    frame equal to the plain version's on the card bit for bit."""
+    argv = ["--out", os.path.join(tmp, "live_view")]
+    zero_counts()
+    res = quiet(live_view.main, argv)
+    check(res["launches"] == LIVE_FRAMES + 1 == ck.distance_kernel.launches,
+          f"live_view: {ck.distance_kernel.launches} K2 launches for "
+          f"{LIVE_FRAMES} frames and the warm one")
+    # the same run under the clock, for the path's kernel time
+    leg = get_m2_leg()
+    frame = live_view.make_frame_fn(leg, 1920, 1080, 0.5, DEV)
+    cuts = np.linspace(-400, 400, LIVE_FRAMES).astype(np.float32)
+    zero_counts()
+    with kernel_clock(("distance",)) as recs:
+        quiet(live_view.main, argv)
+    dc = ck.dist_consts(leg)
+    inputs = [(*frame.points(c, True), dc) for c in [cuts[0], *cuts]]
+    report_clock("python -m legmov_tpu_torch.live_view (1920 x 1080, 60 "
+                 "frames, a second run under the clock)", recs,
+                 {"distance": dist_need_bound(inputs)})
+    inputs = None
+    mid = cuts[len(cuts) // 2]
+    for axis_is_z in (True, False):
+        got, want = frame(mid, axis_is_z), frame.plain(mid, axis_is_z)
+        bad = int((~same_bits(got, want)).sum())
+        check(bad == 0, f"live_view: the middle frame differs from the plain "
+              f"version's on {bad} pixels (axis_is_z {axis_is_z})")
+    say(f"  live_view: {res['fps']:.1f} fps at 1920 x 1080 (2,073,600 points "
+        f"a frame), {LIVE_FRAMES} frames in {res['seconds']:.4f} s on {smi}; "
+        f"K2 launches {res['launches']} = the frames and the warm one; the "
+        f"middle frame (cut {mid:g} mm, both axes) equal to the plain "
+        "version's bit for bit")
+    return res
+
+
+def phase_visualize_solve(smi):
+    """``python -m legmov_tpu_torch.visualize_solve`` at its defaults: K3's
+    feasible mask equal to ``grid_reachable_legs`` on the card, bit for
+    bit, no overflow (the solver raises on one), K3's launches and summed
+    ms."""
+    zero_counts()
+    with kernel_clock(("multileg",)) as recs:
+        res = quiet(visualize_solve.main, [])
+    launches = cm.multileg_kernel.launches
+    check(launches > 0 and launches == len(recs["multileg"]),
+          f"visualize_solve: K3 launches {launches}")
+    sums = report_clock("python -m legmov_tpu_torch.visualize_solve "
+                        "(1,048,576 footholds, hexapod, k = 6, 3,200 poses)",
+                        recs)
+    terrain = map_bench.terrain_at(VIEW_POINTS)
+    robot = make_robot(HEX_MOUNTS)
+    reach = cell_size_for(robot)
+    grid = build_grid(terrain, reach / 2, device=DEV)
+    offsets = neighbor_offsets(reach / 2, reach)
+    body = res["body"]
+    _, _, _, lattice = visualize_solve.body_lattice(terrain, 100.0, 180.0)
+    check(body.shape == (3200, 3) and np.array_equal(body, lattice),
+          f"visualize_solve: {body.shape[0]} poses")
+    t0 = time.perf_counter()
+    want, legs = visualize_solve.feasible(
+        visualize_solve.make_solver(grid, robot, 6, offsets, kernel=False),
+        body, 1024, DEV)
+    t_plain = time.perf_counter() - t0
+    bad = int((want != res["feasible"]).sum())
+    bad_legs = int((legs != res["legs"]).sum())
+    check(bad == 0 and bad_legs == 0, f"visualize_solve: K3's mask differs "
+          f"from grid_reachable_legs on {bad} poses, its leg bits on "
+          f"{bad_legs}")
+    say(f"  visualize_solve ({smi}): {body.shape[0]} poses over "
+        f"{res['footholds']} footholds, {int(res['feasible'].sum())} feasible "
+        f"({res['feasible'].mean():.4f}), mask and leg bits equal to "
+        f"grid_reachable_legs on the card bit for bit ({t_plain:.3f} s), 0 overflow with top_k = "
+        f"{offsets.shape[0]} offsets; wall {res['seconds']:.3f} s under the "
+        f"clock, K3 {launches} launches {sums['multileg']:.3f} ms")
+    return res
+
+
+def phase_circle_figure(smi):
+    """``python -m legmov_tpu_torch.circle_figure`` for both legs: the
+    validity grid on the card equal to the CPU's, the same circles."""
+    for name in ("m2", "moonbot"):
+        data = quiet(circle_figure.main, ["--leg", name, "--out", os.devnull])
+        cpu = circle_figure.figure_data(LEGS[name](), "cpu")
+        check(np.array_equal(data["valid"], cpu["valid"])
+              and data["circles"] == cpu["circles"],
+              f"circle_figure {name}: the card's grid or circles differ "
+              "from the CPU's")
+        say(f"  circle_figure {name} ({smi}): the {circle_figure.SIDE}^2 "
+            "validity grid on the card equal to the CPU's, "
+            f"{len(data['circles'])} circles")
+
+
+def sweep_flops(which, n):
+    """K1's or K2's operations a point on the sweep grid of ``n`` points
+    (m2 leg): K1's count is the same for every point, K2's what these
+    points need (``ck.dist_flops_needed``, on the card in slices)."""
+    leg = get_m2_leg()
+    if which == "reach":
+        return ck.reach_flops_per_point(ck.reach_consts(leg))
+    pix = next(p for p in bench_sweep.ref_pitches()
+               if bench_sweep.grid_size(p) == n)
+    pts = bench_sweep.ref_grid(pix)
+    dc, need = ck.dist_consts(leg), 0
+    for lo in range(0, n, 1 << 24):
+        x, y, z = (torch.from_numpy(np.ascontiguousarray(
+            pts[lo:lo + (1 << 24), i])).to(DEV) for i in range(3))
+        need += ck.dist_flops_needed(x, y, z, dc)
+    return need / n
+
+
+def phase_sweep(tmp, smi):
+    """``python -m legmov_tpu_torch.bench_sweep``: K1 and K2 over the
+    reference protocol's 11 sizes, the plain path on the card and on the
+    CPU, the oracle twin and the LM-IK baseline capped small, then
+    ``bench_report`` over the directory."""
+    out = os.path.join(tmp, "sweep")
+    for argv in SWEEP_RUNS:
+        zero_counts()
+        t0 = time.perf_counter()
+        res = quiet(bench_sweep.main, [*argv, "--out", out])
+        wall = time.perf_counter() - t0
+        launches = profiling.launch_counts()
+        say(f"  bench_sweep {' '.join(argv)}: {wall:.1f} s")
+        if argv[1] != "kernel":
+            continue
+        for which, key, csv, per_pt in (
+                ("reach", "reachability", "rgpu.csv", REACH_BYTES_PER_POINT),
+                ("dist", "distance", "dgpu.csv", DIST_BYTES_PER_POINT)):
+            rows = res[csv]
+            check([r["n"] for r in rows] == SWEEP_SIZES,
+                  f"bench_sweep {which}: sizes {[r['n'] for r in rows]}")
+            check(launches[key] == sum(r["iters"] * len(r["ns"]) + 1
+                                       for r in rows),
+                  f"bench_sweep {which}: {launches[key]} launches")
+            flops = {r["n"]: sweep_flops(which, r["n"]) for r in rows}
+            PATH_TIMES[key, "python -m legmov_tpu_torch.bench_sweep --impl "
+                       "kernel (the 11 sizes; ms over the timed reps)"] = {
+                "launches": launches[key],
+                "ms": sum(sum(r["ns"]) * r["n"] * r["iters"] for r in rows)
+                / 1e6,
+                "bound_ms": sum(bound_ms(r["n"], per_pt, flops[r["n"]])[0]
+                                * r["iters"] * len(r["ns"]) for r in rows)}
+            say(f"    {KERNEL_IDS[key]} ns a point, median of "
+                f"{len(rows[0]['ns'])} reps, at the 11 sizes ({smi}): "
+                + ", ".join(f"{r['n']}: {statistics.median(r['ns']):.4f}"
+                            for r in rows))
+    rep = quiet(bench_report.main, ["--ours", out, "--out",
+                                    os.path.join(out, "report.png")])
+    check(any(line.startswith("speed-up of K1 reach") for line in rep["lines"])
+          and any(line.startswith("speed-up of K2 dist")
+                  for line in rep["lines"]),
+          "bench_report printed no speed-up of the kernels")
+    say(f"  bench_report: the lines above; the card {smi}, the host CPU "
+        f"{profiling.cpu_model()} ({torch.get_num_threads()} threads)")
+
+
+def phase_viewers_and_sweep(smi):
+    """Phase 18: the viewers and the N-sweep, each through its entry point,
+    with the launch counts set to 0 just before and read just after."""
+    have_mpl = importlib.util.find_spec("matplotlib") is not None
+    say(f"phase 18: the viewers (ref_image_check, live_view, visualize_solve,"
+        f" circle_figure) and the N-sweep (bench_sweep, bench_report) on "
+        f"{smi}; matplotlib "
+        + ("present: images written" if have_mpl else
+           "absent: no image written, every number computed all the same"))
+    with tempfile.TemporaryDirectory(prefix="legmov_smoke_") as tmp:
+        phase_ref_image_check(tmp, smi)
+        live = phase_live_view(tmp, smi)
+        phase_visualize_solve(smi)
+        phase_circle_figure(smi)
+        phase_sweep(tmp, smi)
+    return live
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
-                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17",
+                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18",
                     help="comma-separated phases to run (1 always runs; 3 "
                     "and 4 need 2, 7 needs 6, 9, 10 and 11 need 8)")
     ap.add_argument("--quick", action="store_true",
@@ -4243,7 +4542,7 @@ def main(argv=None):
                     "tree's; repeatable")
     args = ap.parse_args(argv)
     on = {int(p) for p in args.phases.split(",")} | {1}
-    whole = on >= set(range(1, 18)) and not args.quick
+    whole = on >= set(range(1, 19)) and not args.quick
 
     t_start = time.perf_counter()
     clock = [t_start]
@@ -4335,6 +4634,9 @@ def main(argv=None):
     if 17 in on:
         phase_fuzz()
         took(17)
+    if 18 in on:
+        phase_viewers_and_sweep(smi)
+        took(18)
 
     say(smi)
     if not whole:

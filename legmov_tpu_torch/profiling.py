@@ -4,13 +4,17 @@ The reference brackets kernels with cudaEvents and appends per-stage
 timings to ``timing_results.txt`` (HeaderCUDA.h:161-198 ``CUDA_TIMING_*``,
 cross_compiled.cu:54-65).  Here: a ``torch.profiler`` trace context for deep
 dives, a stage timer with the same append-to-file habit, the kernels' launch
-counters, and CUDA events around every call of the kernels' C launchers.
+counters, CUDA events around every call of the kernels' C launchers, and
+the label of the device a measurement ran on (the card's name and power
+limit, or the host CPU's model).
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+import platform
+import subprocess
 import time
 
 import torch
@@ -145,3 +149,44 @@ def clock_sums(recs) -> dict:
     return {key: {"launches": len(rec),
                   "ms": sum(a.elapsed_time(b) for a, b, _ in rec)}
             for key, rec in recs.items() if rec}
+
+
+def device_label(device: torch.device) -> str:
+    """The card's name and power limit as ``nvidia-smi`` gives them, or the
+    host CPU's model and PyTorch's thread count."""
+    if device.type == "cuda":
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, check=True).stdout
+        return smi.strip().splitlines()[0]
+    return f"cpu: {cpu_model()}, {torch.get_num_threads()} threads"
+
+
+def cpu_model() -> str:
+    """The host CPU's model name: /proc/cpuinfo's ``model name``, else
+    ``lscpu``'s ``Model name``, else (where a virtual machine reports
+    neither) the vendor, family and model numbers of /proc/cpuinfo."""
+    fields = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                key, _, value = line.partition(":")
+                fields.setdefault(key.strip(), value.strip())
+    except OSError:
+        pass
+    names = [fields.get("model name", "")]
+    try:
+        out = subprocess.run(["lscpu"], capture_output=True, text=True,
+                             timeout=10).stdout
+        names += [line.split(":", 1)[1].strip() for line in out.splitlines()
+                  if line.startswith("Model name")]
+    except (OSError, subprocess.TimeoutExpired):
+        pass
+    for name in names:
+        if name and name.lower() != "unknown":
+            return name
+    ids = " ".join(f"{k} {fields[k]}" for k in ("cpu family", "model")
+                   if k in fields)
+    return (f"{fields.get('vendor_id', platform.machine())} {ids} (model "
+            f"name not reported), {os.cpu_count()} cores").replace("  ", " ")

@@ -24,6 +24,15 @@ def _pyplot():
     return plt
 
 
+def pyplot_or_none():
+    """:func:`_pyplot`, or None where matplotlib does not import (the
+    viewers then compute all the same and say that no image was written)."""
+    try:
+        return _pyplot()
+    except ImportError:
+        return None
+
+
 def slice_mask(targets: np.ndarray, axis: int = 1, cut: float = 0.0) -> np.ndarray:
     """Mask of the grid points on the slice plane nearest to ``cut`` from
     above (after.py:216-224 ``closest_to_0`` selection)."""

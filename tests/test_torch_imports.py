@@ -50,12 +50,17 @@ def test_import_pulls_in_neither_jax_nor_legmov_tpu():
         "import legmov_tpu_torch.parallel.multihost, legmov_tpu_torch.profiling\n"
         "import legmov_tpu_torch.dryrun, legmov_tpu_torch.multihost_dryrun\n"
         "import legmov_tpu_torch.scaling_bench, legmov_tpu_torch.solver_fuzz\n"
-        "import legmov_tpu_torch.hier_fuzz\n"
+        "import legmov_tpu_torch.hier_fuzz, legmov_tpu_torch.ops\n"
+        "import legmov_tpu_torch.ref_image_check, legmov_tpu_torch.live_view\n"
+        "import legmov_tpu_torch.visualize_solve, legmov_tpu_torch.circle_figure\n"
+        "import legmov_tpu_torch.render_solve_cells, legmov_tpu_torch.quick_view\n"
+        "import legmov_tpu_torch.bench_sweep, legmov_tpu_torch.bench_report\n"
         "from legmov_tpu_torch.ops.cuda_multileg import (\n"
         "    make_adaptive_grid_solver, make_fused_grid_solver, pad_grid_soa)\n"
         "bad = [m for m in set(sys.modules) - before if m == 'jax' or m.startswith('jax.')"
         " or m == 'jaxlib' or m == 'legmov_tpu' or m.startswith('legmov_tpu.')"
-        " or m == 'matplotlib']\n"
+        " or m == 'tools' or m.startswith('tools.')"
+        " or m == 'matplotlib' or m.startswith('matplotlib.')]\n"
         "print('BAD', bad)\n"
     )
     env = dict(os.environ)
@@ -97,10 +102,15 @@ def test_same_layout_as_jax_package():
     import legmov_tpu_torch
 
     assert set(legmov_tpu_torch.__all__) == set(legmov_tpu.__all__)
-    import legmov_tpu.parallel
-    import legmov_tpu_torch.parallel
+    # and so does every subpackage
+    import importlib
 
-    assert legmov_tpu_torch.parallel.__all__ == legmov_tpu.parallel.__all__
+    for sub in ("ops", "models", "oracle", "terrain", "parallel"):
+        j = importlib.import_module(f"legmov_tpu.{sub}")
+        t = importlib.import_module(f"legmov_tpu_torch.{sub}")
+        assert t.__all__ == j.__all__, sub
+        for name in t.__all__:
+            assert hasattr(t, name), (sub, name)
     # the kernels' modules are named after their route
     for j, t in (("ops/pallas_kernels.py", "ops/cuda_kernels.py"),
                  ("ops/pallas_multileg.py", "ops/cuda_multileg.py"),
@@ -114,7 +124,16 @@ def test_same_layout_as_jax_package():
                  ("../tools/scaling_bench.py", "scaling_bench.py"),
                  ("../tools/solver_fuzz.py", "solver_fuzz.py"),
                  ("../tools/onchip_fuzz.py", "solver_fuzz.py"),
-                 ("../tools/hier_fuzz.py", "hier_fuzz.py")):
+                 ("../tools/hier_fuzz.py", "hier_fuzz.py"),
+                 # the viewers and the N-sweep
+                 ("../tools/ref_image_check.py", "ref_image_check.py"),
+                 ("../tools/live_view.py", "live_view.py"),
+                 ("../tools/visualize_solve.py", "visualize_solve.py"),
+                 ("../tools/circle_figure.py", "circle_figure.py"),
+                 ("../tools/render_solve_cells.py", "render_solve_cells.py"),
+                 ("../tools/quick_view.py", "quick_view.py"),
+                 ("../tools/bench_sweep.py", "bench_sweep.py"),
+                 ("../tools/bench_report.py", "bench_report.py")):
         assert os.path.exists(os.path.join(REPO, "legmov_tpu", j)), j
         assert os.path.exists(os.path.join(PKG, t)), t
 
@@ -348,15 +367,26 @@ def test_parallel_layer_and_tools_need_a_card_by_default():
     if torch.cuda.is_available():
         pytest.skip("checks the no-card case")
     from legmov_tpu_torch import (
+        bench_sweep,
+        circle_figure,
         dryrun,
         hier_fuzz,
+        live_view,
         multihost_dryrun,
+        ref_image_check,
         scaling_bench,
         solver_fuzz,
+        visualize_solve,
     )
     from legmov_tpu_torch.parallel import make_mesh, multihost
 
-    for fn in (lambda: dryrun.main(["--ranks", "2"]),
+    for fn in (lambda: ref_image_check.main([]),
+               lambda: live_view.main([]),
+               lambda: visualize_solve.main([]),
+               lambda: circle_figure.main([]),
+               lambda: bench_sweep.main([]),
+               lambda: bench_sweep.main(["--impl", "oracle"]),
+               lambda: dryrun.main(["--ranks", "2"]),
                lambda: multihost_dryrun.main([]),
                lambda: scaling_bench.main([]),
                lambda: solver_fuzz.main(["--trials", "1"]),
@@ -393,3 +423,19 @@ def test_spawned_ranks_import_neither_jax_nor_legmov_tpu(tmp_path):
     assert r.returncode == 0, r.stdout + r.stderr
     assert ("RANKS 2 ['positionable', 'reachability', 'solve shared']"
             in r.stdout)
+
+
+def test_tools_write_under_build_by_default():
+    """No tool of the port writes under ``bdata/`` (the JAX package's
+    records) by default: every ``--out`` default lies under ``build/``."""
+    pat = re.compile(r'add_argument\(\s*"--out",\s*default="([^"]*)"')
+    found = {}
+    for name in ("ref_image_check", "live_view", "visualize_solve",
+                 "circle_figure", "render_solve_cells", "quick_view",
+                 "bench_sweep", "bench_report"):
+        with open(os.path.join(PKG, f"{name}.py")) as f:
+            src = f.read()
+        found[name] = pat.findall(src)
+        assert "bdata" not in "".join(found[name]), name
+    assert all(len(v) == 1 and v[0].startswith("build/")
+               for v in found.values()), found
