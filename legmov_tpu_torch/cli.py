@@ -530,7 +530,11 @@ def main(argv=None) -> None:
                    "through the fused item kernel; auto = csr unless "
                    "--backend torch")
     p.add_argument("--profile", action="store_true",
-                   help="print a per-level breakdown")
+                   help="print the solve's record when it ends: a [hier] "
+                   "line a level (cells, batches, dispatch and fetch "
+                   "seconds, the host seconds of each program span), a "
+                   "[hier-audit] line a CSR level (the kernels' seven work "
+                   "counters) and the host synchronisations")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="where to compute; cuda needs a card (there is no "
                    "silent CPU path)")

@@ -70,6 +70,7 @@ from legmov_tpu_torch.ops.orientation import (
     _undo_leg0,
     oriented_workspace_items,
 )
+from legmov_tpu_torch.spans import phase
 
 _f32 = np.float32
 
@@ -372,12 +373,9 @@ def solve_positionability(
     Batches of a level are DISPATCHED first and fetched afterwards (one
     packed flags tensor per level), so the host reads the device once per
     level: that is one synchronisation per level, counted in
-    ``stats["host_syncs"]``.  A dense level's batches travel to the card in
-    pinned buffers without a synchronisation; the CSR level still takes
-    blocking copies (its tables, each batch's cells), which ``host_syncs``
-    does not count.  ``profile=True`` (or env
-    ``LEGMOV_HIER_PROFILE=1``) prints a per-level breakdown (batches,
-    subset bytes, dispatch vs fetch wall).
+    ``stats["host_syncs"]``.  Every level's tables and cells travel to the
+    card in pinned buffers without a wait (:func:`_upload`); the level's
+    fetch is the only copy the host waits for.
 
     ``candidates`` selects how orientation-active levels get their
     foothold candidates: ``"dense"`` = per-batch bbox subsets through the
@@ -393,13 +391,33 @@ def solve_positionability(
     for the shared rule, 1024 and 32768 for the per-leg rule); they were
     chosen on another accelerator and have not been tuned for a GPU.
 
-    Environment switches: ``LEGMOV_HIER_PROFILE``, ``LEGMOV_HIER_AUDIT=1``
-    (per-level work counters of the CSR evaluator), ``LEGMOV_CSR_QUAT_MAJOR=1``
-    (the quat-major kernel for both rules), ``LEGMOV_CSR_CHUNK_MASKS=0``
-    (per-slab instead of per-chunk role masks), ``LEGMOV_HIER_CS_FRAC``
-    (CSR cell size as a fraction of the reach).  Flags are the same under
-    each.  ``stats``, when given a dict, receives ``host_syncs``, ``levels``,
-    ``collectives`` and a ``per_level`` list.
+    Environment switches: ``LEGMOV_CSR_QUAT_MAJOR=1`` (the quat-major kernel
+    for both rules), ``LEGMOV_CSR_CHUNK_MASKS=0`` (per-slab instead of
+    per-chunk role masks), ``LEGMOV_HIER_CS_FRAC`` (CSR cell size as a
+    fraction of the reach).  Flags are the same under each.
+
+    Spans (spans.py ``phase``): the solve's host steps are timed always, and
+    are ``legmov.<name>`` ranges while ``torch.profiler`` records:
+    ``solve`` (the call), ``solve.prepare`` (orientations, factories, the
+    footholds' upload and the CSR grid), and per level ``level`` (its split
+    to its unpack), ``level.split``, ``level.tables``, ``level.upload``,
+    ``level.fetch`` (the packing and the one read of the device),
+    ``level.unpack`` (flags, refinement and terminal cells), and per batch
+    ``batch.queue_max``, ``batch.upload``, ``batch.queue``, ``batch.launch``
+    (CSR levels) or ``batch.subset``, ``batch.launch`` (dense levels).
+
+    ``stats``, when given a dict, receives ``host_syncs``, ``levels``,
+    ``collectives``, ``host_s`` (the seconds of ``solve`` and
+    ``solve.prepare``) and a ``per_level`` list of dicts: ``depth``,
+    ``cells``, ``rot``, ``kind`` (``"csr"`` or ``"dense"``), ``batch``,
+    ``batches``, ``dispatch_s`` (the level's dispatch on the host clock),
+    ``fetch_s`` (its fetch and flag unpacking), ``done_s``, ``host_s`` (the
+    seconds of each of the level's spans, summed over its batches), and on
+    a CSR level of a single-rank solve ``audit``: the kernels' seven work
+    counters (ops/csr_cell_eval.py ``AUDIT_COUNTERS``) summed over the
+    level's cells, fetched with its flags.  ``profile=True`` prints these
+    records when the solve ends: a ``[hier]`` line a level with its spans'
+    seconds, and a ``[hier-audit]`` line a CSR level.
 
     ``mesh``: a parallel/sharding.py ``make_mesh`` mesh.  Every rank runs
     this host loop; a level's cells split over the ranks in contiguous
@@ -420,90 +438,137 @@ def solve_positionability(
             raise ValueError(f"device {device} but the mesh computes on "
                              f"{mesh.device}")
         dev = mesh.device
-        ranks, me = mesh.size, mesh.rank
     else:
         dev = resolve_device(device)
-        ranks, me = 1, 0
     if backend == "cuda" and dev.type != "cuda":
         raise ValueError("backend='cuda' needs a CUDA device")
-    profile = profile or bool(os.environ.get("LEGMOV_HIER_PROFILE"))
+    record: dict = {}
+    host_s: dict = {}
+    with phase("solve", host_s):
+        rec = _solve(footholds, robot, cfg, chunk, cell_batch,
+                     shared_foothold, backend, candidates, csr_window,
+                     csr_cell_chunk, dev, mesh, record, host_s)
+    record["host_s"] = host_s
+    if profile:
+        _print_profile(record)
+    if stats is not None:
+        stats.update(record)
+    return rec
+
+
+def _print_profile(record: dict) -> None:
+    """The ``[hier]`` and ``[hier-audit]`` lines of a solve's record."""
+    host_s = record["host_s"]
+    print(f"[hier] prepare took {host_s['solve.prepare']:.3f}s "
+          f"(factories, foothold upload, the CSR grid on the CSR path)",
+          flush=True)
+    for level in record["per_level"]:
+        extra = (f"csr window={level['window']} maxch={level['maxch']}"
+                 if level["kind"] == "csr"
+                 else f"subset_mb={level['subset_mb']:.1f}")
+        spans = " ".join(f"{k}={v:.3f}"
+                         for k, v in level["host_s"].items())
+        print(
+            f"[hier] depth={level['depth']} cells={level['cells']} "
+            f"batches={level['batches']} batch={level['batch']} "
+            f"rot={level['rot']} {extra} "
+            f"dispatch_s={level['dispatch_s']:.3f} "
+            f"fetch_s={level['fetch_s']:.3f} "
+            f"done at +{level['done_s']:.2f}s spans: {spans}",
+            flush=True,
+        )
+        if "audit" in level:
+            counters = " ".join(f"{k}={v}" for k, v in level["audit"].items())
+            print(f"[hier-audit] depth={level['depth']} "
+                  f"cells={level['cells']} {counters}", flush=True)
+    print(
+        f"[hier] solve took {host_s['solve']:.3f}s, "
+        f"{record['host_syncs']} host synchronisations over "
+        f"{record['levels']} levels",
+        flush=True,
+    )
+
+
+def _solve(footholds, robot, cfg, chunk, cell_batch, shared_foothold,
+           backend, candidates, csr_window, csr_cell_chunk, dev, mesh,
+           record, host_s) -> CellRecord:
+    """The body of :func:`solve_positionability` on a checked device:
+    fills ``record`` with its ``stats`` and ``host_s`` with the seconds of
+    ``solve.prepare``."""
+    ranks, me = (1, 0) if mesh is None else (mesh.size, mesh.rank)
     t_solve0 = time.perf_counter()
-    if not csr_window:
-        csr_window = 2048 if shared_foothold else 1024
-    if not csr_cell_chunk:
-        csr_cell_chunk = 16384 if shared_foothold else 32768
-    k = cfg.legs_for_stability
-    reach = _total_reach(robot)
-    quats_np = orientation_samples(cfg)
-    quats, = _upload(dev, quats_np)
-    min_box = np.asarray(cfg.min_box, _f32)
-    S = int(quats_np.shape[0])
+    with phase("solve.prepare", host_s):
+        if not csr_window:
+            csr_window = 2048 if shared_foothold else 1024
+        if not csr_cell_chunk:
+            csr_cell_chunk = 16384 if shared_foothold else 32768
+        k = cfg.legs_for_stability
+        reach = _total_reach(robot)
+        quats_np = orientation_samples(cfg)
+        quats, = _upload(dev, quats_np)
+        min_box = np.asarray(cfg.min_box, _f32)
+        S = int(quats_np.shape[0])
 
-    fused = backend != "torch"
-    fast_eval = fast_rot_eval = None
-    eager_ws: dict = {}
-    if fused:
-        from legmov_tpu_torch.ops.cuda_multileg_dist import make_cell_eval_rot
+        fused = backend != "torch"
+        fast_eval = fast_rot_eval = None
+        eager_ws: dict = {}
+        if fused:
+            from legmov_tpu_torch.ops.cuda_multileg_dist import (
+                make_cell_eval_rot,
+            )
 
-        # levels without orientation sampling evaluate the FIRST sample; the
-        # single-leg distance kernel serves them when that sample is the
-        # identity (symmetric ranges with odd sample counts), the item
-        # kernel with that one sample otherwise
-        if np.array_equal(quats_np[0], quat.IDENTITY):
-            fast_eval = make_fast_cell_eval(robot)
-        fast_rot_eval = make_cell_eval_rot(robot, k=k)
+            # levels without orientation sampling evaluate the FIRST sample;
+            # the single-leg distance kernel serves them when that sample is
+            # the identity (symmetric ranges with odd sample counts), the
+            # item kernel with that one sample otherwise
+            if np.array_equal(quats_np[0], quat.IDENTITY):
+                fast_eval = make_fast_cell_eval(robot)
+            fast_rot_eval = make_cell_eval_rot(robot, k=k)
 
-    def eval_dense(*a, use_rot, **kw):
-        # the oriented workspaces depend on the sample set only
-        if use_rot not in eager_ws:
-            n = S if use_rot else 1
-            eager_ws[use_rot] = [
-                workspace_tensors(ws, dev) for ws in
-                oriented_workspace_items(torch.from_numpy(quats_np[:n]),
-                                         robot)]
-        return _eval_cells(*a, use_rot=use_rot, workspaces=eager_ws[use_rot],
-                           **kw)
+        def eval_dense(*a, use_rot, **kw):
+            # the oriented workspaces depend on the sample set only
+            if use_rot not in eager_ws:
+                n = S if use_rot else 1
+                eager_ws[use_rot] = [
+                    workspace_tensors(ws, dev) for ws in
+                    oriented_workspace_items(torch.from_numpy(quats_np[:n]),
+                                             robot)]
+            return _eval_cells(*a, use_rot=use_rot,
+                               workspaces=eager_ws[use_rot], **kw)
 
-    F = footholds.shape[0]
-    fh = np.ascontiguousarray(footholds, dtype=_f32)
-    fh_dev, = _upload(dev, fh)
+        F = footholds.shape[0]
+        fh = np.ascontiguousarray(footholds, dtype=_f32)
+        fh_dev, = _upload(dev, fh)
 
-    # CSR-streaming candidates for orientation-active levels: footholds
-    # live on the device ONCE in cell-sorted CSR form; per-cell elongated
-    # boxes stream as x-slab windows inside the kernel (no per-batch subsets)
-    use_csr = candidates == "csr" or (candidates == "auto" and fused)
-    csr_env = None
-    if use_csr and F:
-        from legmov_tpu_torch.ops import csr_cell_eval as cce
-        from legmov_tpu_torch.ops.csr_grid import build_csr_grid
+        # CSR-streaming candidates for orientation-active levels: footholds
+        # live on the device ONCE in cell-sorted CSR form; per-cell
+        # elongated boxes stream as x-slab windows inside the kernel (no
+        # per-batch subsets)
+        use_csr = candidates == "csr" or (candidates == "auto" and fused)
+        csr_env = None
+        if use_csr and F:
+            from legmov_tpu_torch.ops import csr_cell_eval as cce
+            from legmov_tpu_torch.ops.csr_grid import build_csr_grid
 
-        # ~1 reach per grid cell: 3-4 x-slabs per deep elongated box.
-        # LEGMOV_HIER_CS_FRAC scales it: fatter slabs hold more points per
-        # chunk at the cost of coarser slab role masks.
-        cs_cell = reach * float(
-            os.environ.get("LEGMOV_HIER_CS_FRAC", "1.0") or 1.0)
-        # built on the host, its arrays and the cell size (a 0-d tensor for
-        # build_cell_queue's divisions) up in one asynchronous copy
-        csr_h = build_csr_grid(fh, cs_cell, device="cpu")
-        parts = [t.numpy() for t in (csr_h.xs, csr_h.ys, csr_h.zs,
-                                     csr_h.starts, csr_h.origin)]
-        *arrays, cs_d = _upload(dev, *parts,
-                                np.asarray(csr_h.cell_size, _f32))
-        csr = csr_h._replace(**dict(zip(("xs", "ys", "zs", "starts",
-                                         "origin"), arrays)))
-        csr_env = dict(csr=csr, starts_h=parts[3], origin_h=parts[4],
-                       cell_size=cs_d, fns={})
+            # ~1 reach per grid cell: 3-4 x-slabs per deep elongated box.
+            # LEGMOV_HIER_CS_FRAC scales it: fatter slabs hold more points
+            # per chunk at the cost of coarser slab role masks.
+            cs_cell = reach * float(
+                os.environ.get("LEGMOV_HIER_CS_FRAC", "1.0") or 1.0)
+            # built on the host, its arrays and the cell size (a 0-d tensor
+            # for build_cell_queue's divisions) up in one asynchronous copy
+            csr_h = build_csr_grid(fh, cs_cell, device="cpu")
+            parts = [t.numpy() for t in (csr_h.xs, csr_h.ys, csr_h.zs,
+                                         csr_h.starts, csr_h.origin)]
+            *arrays, cs_d = _upload(dev, *parts,
+                                    np.asarray(csr_h.cell_size, _f32))
+            csr = csr_h._replace(**dict(zip(("xs", "ys", "zs", "starts",
+                                             "origin"), arrays)))
+            csr_env = dict(csr=csr, starts_h=parts[3], origin_h=parts[4],
+                           cell_size=cs_d, fns={})
 
     n_syncs = n_collectives = 0
     per_level: list[dict] = []
-    if profile:
-        print(
-            f"[hier] setup done at +{time.perf_counter() - t_solve0:.2f}s "
-            f"(factories + foothold upload"
-            f"{' + csr grid' if csr_env is not None else ''})",
-            flush=True,
-        )
-
     out: list[tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray, int]] = []
 
     centers = np.asarray([cfg.box_center], _f32)
@@ -511,213 +576,210 @@ def solve_positionability(
     parent_valid = np.zeros(1, bool)
 
     for depth in range(cfg.max_depth + 1):
-        children, child_half = _split_children(centers, half, min_box)
-        n_children = children.shape[0] // centers.shape[0]
-        child_parent_valid = np.repeat(parent_valid, n_children)
-        order = _morton_order(children, child_half)
-        children = children[order]
-        child_parent_valid = child_parent_valid[order]
+        lv_s: dict = {}  # the level's spans: name -> host seconds
+        with phase("level", lv_s):
+            with phase("level.split", lv_s):
+                children, child_half = _split_children(centers, half,
+                                                       min_box)
+                n_children = children.shape[0] // centers.shape[0]
+                child_parent_valid = np.repeat(parent_valid, n_children)
+                order = _morton_order(children, child_half)
+                children = children[order]
+                child_parent_valid = child_parent_valid[order]
 
-        rot_active = bool(half[0] < cfg.enable_rot_below)
-        margin = 0.0 if rot_active else cfg.enable_rot_below / 3.0
+            rot_active = bool(half[0] < cfg.enable_rot_below)
+            margin = 0.0 if rot_active else cfg.enable_rot_below / 3.0
 
-        C = children.shape[0]
-        # this rank's contiguous range of the level's cells (all of them
-        # without a mesh)
-        share = -(-C // ranks)
-        r_lo = min(me * share, C)
-        r_hi = min(r_lo + share, C)
-        level = dict(depth=depth, cells=C, rot=rot_active)
-        pending: list[tuple[int, int, torch.Tensor]] = []
-        audit_parts: list[torch.Tensor] = []
-        over_parts: list[torch.Tensor] = []
+            C = children.shape[0]
+            # this rank's contiguous range of the level's cells (all of
+            # them without a mesh)
+            share = -(-C // ranks)
+            r_lo = min(me * share, C)
+            r_hi = min(r_lo + share, C)
+            level = dict(depth=depth, cells=C, rot=rot_active, host_s=lv_s)
+            pending: list[tuple[int, int, torch.Tensor]] = []
+            audit_parts: list[torch.Tensor] = []
+            over_parts: list[torch.Tensor] = []
 
-        # CSR-streaming path for orientation-active levels (see
-        # ``candidates`` in the docstring); levels whose elongated box
-        # spans more than R_CAP slabs go to the dense evaluators
-        r_need = 0
-        if rot_active and csr_env is not None:
-            csr = csr_env["csr"]
-            elong_np = (half + np.float32(reach)).astype(_f32)
-            r_need = int(np.ceil(elong_np[0] / csr.cell_size)) + 1
-        t_disp0 = time.perf_counter()
-        if rot_active and csr_env is not None and r_need <= cce.R_CAP:
-            # the chunk-major kernel for the shared rule (one stream per
-            # chunk instead of S), the quat-major kernel for the per-leg
-            # rule: the reference implementation's defaults.  On an H100
-            # the chunk-major per-leg kernel took 1.48x the quat-major
-            # kernel's time over the depth-7 per-leg solve's batches, in
-            # turns (chip_smoke.py phase 8)
-            chunk_major = shared_foothold and not _env_flag(
-                "LEGMOV_CSR_QUAT_MAJOR", 0)
-            audit = _env_flag("LEGMOV_HIER_AUDIT", 0) and ranks == 1
-            chunk_masks = _env_flag("LEGMOV_CSR_CHUNK_MASKS", 1)
-            key = (chunk_major, chunk_masks)
-            if key not in csr_env["fns"]:
-                csr_env["fns"][key] = cce.make_csr_cell_eval(
-                    robot, k=k, n_quats=S, shared=shared_foothold,
-                    window=csr_window, chunk_major=chunk_major, audit=True,
-                    chunk_masks=chunk_masks, plain=not fused)
-            ev_csr = csr_env["fns"][key]
-            # the level's constants, built on the host from the host copy
-            # of the orientations, go up in one asynchronous copy
-            legtab_h = cce.level_tables(quats_np, child_half, half, robot,
-                                        float(margin), reach)
-            rmounts_h, reach_l_h, r_cell = cce.ball_mask_params(
-                torch.from_numpy(quats_np), robot, child_half, float(margin))
-            legtab, rmounts, reach_l_d, elong_d = _upload(
-                dev, legtab_h.numpy(), rmounts_h.numpy(), reach_l_h.numpy(),
-                elong_np)
-            batch = max(1, min(csr_cell_chunk, r_hi - r_lo))
-            level.update(kind="csr", batch=batch, window=csr_window,
-                         maxch=0)
-            for s in range(r_lo, r_hi, batch):
-                e = min(s + batch, r_hi)
-                maxch = cce.slab_queue_host_max(
-                    children[s:e], elong_np, csr_env["starts_h"],
-                    csr_env["origin_h"], csr.cell_size, csr.dims, csr_window)
-                level["maxch"] = max(level["maxch"], maxch)
-                res = ev_csr(
-                    *_upload(dev, children[s:e], child_parent_valid[s:e]),
-                    legtab, elong_d, rmounts, reach_l_d, r_cell,
-                    csr.xs, csr.ys, csr.zs, csr.starts, csr.origin,
-                    cell_size=csr_env["cell_size"], dims=csr.dims,
-                    q_steps=maxch)
-                v, ed, lf, over, counts = res
-                pending.append((s, e - s, (v, ed, lf)))
-                over_parts.append(over.reshape(1))
-                if audit:
-                    audit_parts.append(counts.sum(dim=0, dtype=torch.int64))
-        else:
-            # power-of-two cell batches, so that tiny levels do not pay for
-            # the full batch size
-            batch = min(cell_batch,
-                        1 << (max(r_hi - r_lo - 1, 1)).bit_length())
-            sub_bytes = 0
-            level_quats = quats if rot_active else quats[:1]
-            if not fused:
-                ev = eval_dense
-            elif rot_active or fast_eval is None:
-                ev = fast_rot_eval
+            # CSR-streaming path for orientation-active levels (see
+            # ``candidates`` in the docstring); levels whose elongated box
+            # spans more than R_CAP slabs go to the dense evaluators
+            r_need = 0
+            if rot_active and csr_env is not None:
+                csr = csr_env["csr"]
+                elong_np = (half + np.float32(reach)).astype(_f32)
+                r_need = int(np.ceil(elong_np[0] / csr.cell_size)) + 1
+            t_disp0 = time.perf_counter()
+            if rot_active and csr_env is not None and r_need <= cce.R_CAP:
+                # the chunk-major kernel for the shared rule (one stream per
+                # chunk instead of S), the quat-major kernel for the per-leg
+                # rule: the reference implementation's defaults.  On an H100
+                # the chunk-major per-leg kernel took 1.48x the quat-major
+                # kernel's time over the depth-7 per-leg solve's batches, in
+                # turns (chip_smoke.py phase 8)
+                chunk_major = shared_foothold and not _env_flag(
+                    "LEGMOV_CSR_QUAT_MAJOR", 0)
+                chunk_masks = _env_flag("LEGMOV_CSR_CHUNK_MASKS", 1)
+                key = (chunk_major, chunk_masks)
+                if key not in csr_env["fns"]:
+                    csr_env["fns"][key] = cce.make_csr_cell_eval(
+                        robot, k=k, n_quats=S, shared=shared_foothold,
+                        window=csr_window, chunk_major=chunk_major,
+                        audit=True, chunk_masks=chunk_masks,
+                        plain=not fused)
+                ev_csr = csr_env["fns"][key]
+                # the level's constants, built on the host from the host
+                # copy of the orientations, go up in one asynchronous copy
+                with phase("level.tables", lv_s):
+                    legtab_h = cce.level_tables(quats_np, child_half, half,
+                                                robot, float(margin), reach)
+                    rmounts_h, reach_l_h, r_cell = cce.ball_mask_params(
+                        torch.from_numpy(quats_np), robot, child_half,
+                        float(margin))
+                with phase("level.upload", lv_s):
+                    legtab, rmounts, reach_l_d, elong_d = _upload(
+                        dev, legtab_h.numpy(), rmounts_h.numpy(),
+                        reach_l_h.numpy(), elong_np)
+                batch = max(1, min(csr_cell_chunk, r_hi - r_lo))
+                level.update(kind="csr", batch=batch, window=csr_window,
+                             maxch=0)
+                for s in range(r_lo, r_hi, batch):
+                    e = min(s + batch, r_hi)
+                    with phase("batch.queue_max", lv_s):
+                        maxch = cce.slab_queue_host_max(
+                            children[s:e], elong_np, csr_env["starts_h"],
+                            csr_env["origin_h"], csr.cell_size, csr.dims,
+                            csr_window)
+                    level["maxch"] = max(level["maxch"], maxch)
+                    with phase("batch.upload", lv_s):
+                        cells = _upload(dev, children[s:e],
+                                        child_parent_valid[s:e])
+                    res = ev_csr(
+                        *cells, legtab, elong_d, rmounts, reach_l_d, r_cell,
+                        csr.xs, csr.ys, csr.zs, csr.starts, csr.origin,
+                        cell_size=csr_env["cell_size"], dims=csr.dims,
+                        q_steps=maxch, phases=lv_s)
+                    v, ed, lf, over, counts = res
+                    pending.append((s, e - s, (v, ed, lf)))
+                    over_parts.append(over.reshape(1))
+                    if ranks == 1:
+                        # the work counters travel in the level's one fetch
+                        audit_parts.append(
+                            counts.sum(dim=0, dtype=torch.int64))
             else:
-                ev = fast_eval
-            for s in range(r_lo, r_hi, batch):
-                e = min(s + batch, r_hi)
-                # batch-local foothold subset (the octree's elongated-box
-                # pruning at batch granularity,
-                # several_leg_octree.cu:76-82): only points within the
-                # batch bbox expanded by parent_half + reach can pass the
-                # per-cell prefilter, and Morton order keeps batches
-                # spatially coherent — at deep levels this shrinks the
-                # foothold axis by orders of magnitude.
-                expand = half + np.float32(reach)
-                lo = children[s:e].min(axis=0) - expand
-                hi = children[s:e].max(axis=0) + expand
-                m = np.all((fh >= lo) & (fh <= hi), axis=1)
-                cells = (children[s:e], child_parent_valid[s:e])
-                if int(m.sum()) < F // 2:
-                    sub = fh[m]
-                    c_d, pv_d, fh_batch = _upload(dev, *cells, sub)
-                    sub_bytes += sub.nbytes
+                # power-of-two cell batches, so that tiny levels do not pay
+                # for the full batch size
+                batch = min(cell_batch,
+                            1 << (max(r_hi - r_lo - 1, 1)).bit_length())
+                sub_bytes = 0
+                level_quats = quats if rot_active else quats[:1]
+                if not fused:
+                    ev = eval_dense
+                elif rot_active or fast_eval is None:
+                    ev = fast_rot_eval
                 else:
-                    (c_d, pv_d), fh_batch = _upload(dev, *cells), fh_dev
-                f = ev(c_d, pv_d, child_half, half, fh_batch, level_quats,
-                       robot, k=k, margin=float(margin), reach=reach,
-                       chunk=chunk, use_rot=rot_active,
-                       shared=shared_foothold)
-                pending.append((s, e - s, f))
-            level.update(kind="dense", batch=batch,
-                         subset_mb=sub_bytes / 1e6)
-        t_disp = time.perf_counter() - t_disp0
+                    ev = fast_eval
+                for s in range(r_lo, r_hi, batch):
+                    e = min(s + batch, r_hi)
+                    # batch-local foothold subset (the octree's elongated-box
+                    # pruning at batch granularity,
+                    # several_leg_octree.cu:76-82): only points within the
+                    # batch bbox expanded by parent_half + reach can pass the
+                    # per-cell prefilter, and Morton order keeps batches
+                    # spatially coherent — at deep levels this shrinks the
+                    # foothold axis by orders of magnitude.
+                    with phase("batch.subset", lv_s):
+                        expand = half + np.float32(reach)
+                        lo = children[s:e].min(axis=0) - expand
+                        hi = children[s:e].max(axis=0) + expand
+                        m = np.all((fh >= lo) & (fh <= hi), axis=1)
+                        cells = (children[s:e], child_parent_valid[s:e])
+                        if int(m.sum()) < F // 2:
+                            sub = fh[m]
+                            c_d, pv_d, fh_batch = _upload(dev, *cells, sub)
+                            sub_bytes += sub.nbytes
+                        else:
+                            c_d, pv_d = _upload(dev, *cells)
+                            fh_batch = fh_dev
+                    with phase("batch.launch", lv_s):
+                        f = ev(c_d, pv_d, child_half, half, fh_batch,
+                               level_quats, robot, k=k, margin=float(margin),
+                               reach=reach, chunk=chunk, use_rot=rot_active,
+                               shared=shared_foothold)
+                    pending.append((s, e - s, f))
+                level.update(kind="dense", batch=batch,
+                             subset_mb=sub_bytes / 1e6)
+            t_disp = time.perf_counter() - t_disp0
 
-        # ONE packed tensor per level, fetched after the whole level is
-        # dispatched: the level's only read of the device
-        t_fetch0 = time.perf_counter()
-        flat = np.zeros(0, np.int64)
-        if pending:
-            packed = [torch.cat([x.reshape(-1) for _, _, f in pending
-                                 for x in f]).to(torch.int64)]
-            packed += over_parts and [torch.cat(over_parts).to(torch.int64)]
-            packed += audit_parts
-            flat = torch.cat(packed).cpu().numpy()
-            n_syncs += 1
-        flags = np.zeros((C, 3), bool)  # valid, edge, leaf_ok
-        pos = 0
-        for s, n, _ in pending:
-            flags[s:s + n] = flat[pos:pos + 3 * n].reshape(3, n).T
-            pos += 3 * n
-        over = bool(flat[pos:pos + len(over_parts)].any())
-        pos += len(over_parts)
-        if ranks > 1:
-            from legmov_tpu_torch.parallel.sharding import gather_level
+            # ONE packed tensor per level, fetched after the whole level is
+            # dispatched: the level's only read of the device
+            t_fetch0 = time.perf_counter()
+            with phase("level.fetch", lv_s):
+                flat = np.zeros(0, np.int64)
+                if pending:
+                    packed = [torch.cat([x.reshape(-1) for _, _, f in pending
+                                         for x in f]).to(torch.int64)]
+                    packed += over_parts and [
+                        torch.cat(over_parts).to(torch.int64)]
+                    packed += audit_parts
+                    flat = torch.cat(packed).cpu().numpy()
+                    n_syncs += 1
+            with phase("level.unpack", lv_s):
+                flags = np.zeros((C, 3), bool)  # valid, edge, leaf_ok
+                pos = 0
+                for s, n, _ in pending:
+                    flags[s:s + n] = flat[pos:pos + 3 * n].reshape(3, n).T
+                    pos += 3 * n
+                over = bool(flat[pos:pos + len(over_parts)].any())
+                pos += len(over_parts)
+                if ranks > 1:
+                    from legmov_tpu_torch.parallel.sharding import (
+                        gather_level,
+                    )
 
-            flags, over = gather_level(mesh, flags[r_lo:r_hi], over, C)
-            n_collectives += 1
-        if over:
-            raise RuntimeError(
-                "csr_cell_eval queue truncated: the host's slab sizing "
-                "and the device's diverged")
-        valid, edge, leaf_ok = flags.T
-        t_fetch = time.perf_counter() - t_fetch0
-        level.update(batches=len(pending), dispatch_s=t_disp,
-                     fetch_s=t_fetch,
-                     done_s=time.perf_counter() - t_solve0)
-        if audit_parts:
-            tot = flat[pos:].reshape(len(audit_parts), -1).sum(axis=0)
-            level["audit"] = [int(x) for x in tot]
-            print(
-                f"[hier-audit] depth={depth} cells={C} "
-                f"chunks_evaluated={int(tot[0])} "
-                f"chunk_quat_evals={int(tot[1])} leg_evals={int(tot[2])} "
-                f"chunk_elems={int(tot[3])} item_elems={int(tot[4])} "
-                f"leg_elems={int(tot[5])} leg_elems_in_box={int(tot[6])}",
-                flush=True,
-            )
+                    flags, over = gather_level(mesh, flags[r_lo:r_hi], over,
+                                               C)
+                    n_collectives += 1
+                if over:
+                    raise RuntimeError(
+                        "csr_cell_eval queue truncated: the host's slab "
+                        "sizing and the device's diverged")
+                valid, edge, leaf_ok = flags.T
+                t_fetch = time.perf_counter() - t_fetch0
+                level.update(batches=len(pending), dispatch_s=t_disp,
+                             fetch_s=t_fetch,
+                             done_s=time.perf_counter() - t_solve0)
+                if audit_parts:
+                    tot = flat[pos:].reshape(len(audit_parts), -1).sum(axis=0)
+                    level["audit"] = dict(zip(cce.AUDIT_COUNTERS,
+                                              map(int, tot)))
+
+                splittable = bool(np.any(child_half >= min_box))
+                refine = edge & ~leaf_ok
+                last_level = depth == cfg.max_depth or not splittable
+                terminal = ~refine if not last_level else np.ones(C, bool)
+
+                if np.any(terminal):
+                    n_term = int(terminal.sum())
+                    out.append(
+                        (
+                            children[terminal],
+                            np.broadcast_to(child_half, (n_term, 3)),
+                            valid[terminal],
+                            refine[terminal] if last_level
+                            else np.zeros(n_term, bool),
+                            depth,
+                        )
+                    )
         per_level.append(level)
-        if profile:
-            extra = (f"csr window={csr_window} maxch={level['maxch']}"
-                     if level["kind"] == "csr"
-                     else f"subset_mb={level['subset_mb']:.1f}")
-            print(
-                f"[hier] depth={depth} cells={C} batches={len(pending)} "
-                f"batch={level['batch']} rot={rot_active} {extra} "
-                f"dispatch_s={t_disp:.3f} fetch_s={t_fetch:.3f} "
-                f"done at +{level['done_s']:.2f}s",
-                flush=True,
-            )
-
-        splittable = bool(np.any(child_half >= min_box))
-        refine = edge & ~leaf_ok
-        last_level = depth == cfg.max_depth or not splittable
-        terminal = ~refine if not last_level else np.ones(C, bool)
-
-        if np.any(terminal):
-            n_term = int(terminal.sum())
-            out.append(
-                (
-                    children[terminal],
-                    np.broadcast_to(child_half, (n_term, 3)),
-                    valid[terminal],
-                    refine[terminal] if last_level else np.zeros(n_term, bool),
-                    depth,
-                )
-            )
         if last_level or not np.any(refine):
             break
         centers = children[refine]
         parent_valid = valid[refine]
         half = child_half
 
-    if profile:
-        print(
-            f"[hier] solve loop done at "
-            f"+{time.perf_counter() - t_solve0:.2f}s, "
-            f"{n_syncs} host synchronisations over {len(per_level)} levels",
-            flush=True,
-        )
-    if stats is not None:
-        stats.update(host_syncs=n_syncs, levels=len(per_level),
-                     collectives=n_collectives, per_level=per_level)
+    record.update(host_syncs=n_syncs, levels=len(per_level),
+                  collectives=n_collectives, per_level=per_level)
     cs = np.concatenate([o[0] for o in out])
     hs = np.concatenate([o[1] for o in out])
     vs = np.concatenate([o[2] for o in out])

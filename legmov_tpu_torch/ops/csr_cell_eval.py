@@ -67,12 +67,22 @@ from legmov_tpu_torch.ops import cuda_multileg_dist as cmd
 from legmov_tpu_torch.ops import quaternion as quat
 from legmov_tpu_torch.ops.grid import f32_scalar
 from legmov_tpu_torch.ops.solve_schedule import robot_geometry
+from legmov_tpu_torch.spans import phase
 
 _f32 = np.float32
 
 #: static x-slab offset cap: levels whose elongated box spans more than
 #: 2*R_CAP+1 grid cells per axis fall back to the dense evaluators
 R_CAP = 6
+
+#: the kernels' seven work counters a cell (``audit=True``), in their order:
+#: chunks evaluated, (chunk, orientation) items evaluated, per-leg pipeline
+#: passes, the chunk elements behind each of the three, and the leg
+#: pipelines run on elements inside the cell's elongated box (``item_leg``'s
+#: runs: csrc/cell_kernels.cu ``work``)
+AUDIT_COUNTERS = ("chunks_evaluated", "chunk_quat_evals", "leg_evals",
+                  "chunk_elems", "item_elems", "leg_elems",
+                  "leg_elems_in_box")
 
 #: ball-mask slack (mm) absorbing fp32 rounding of the mask tests and of
 #: the distance pipeline whose outputs they bound
@@ -937,10 +947,13 @@ def make_csr_cell_eval(
 
     Returns ``eval(centers [C, 3], parent_valid [C], legtab [S, W],
     elong [3], rmounts [S, L, 3], reach_l [L], r_cell, xs, ys, zs, starts,
-    origin, cell_size=, dims=, q_steps=None) -> (valid, edge, leaf, over)``
-    with models/hier_solver.py ``_eval_cells`` flag semantics for the given
-    ``shared`` mode.  ``legtab`` comes from :func:`level_tables`; the
-    ball-mask args from :func:`ball_mask_params`.
+    origin, cell_size=, dims=, q_steps=None, phases=None) -> (valid, edge,
+    leaf, over)`` with models/hier_solver.py ``_eval_cells`` flag semantics
+    for the given ``shared`` mode.  ``legtab`` comes from
+    :func:`level_tables`; the ball-mask args from :func:`ball_mask_params`.
+    A call runs in the program spans (spans.py ``phase``) ``batch.queue``
+    (the queue and the cells' rows) and ``batch.launch`` (the kernel
+    wrapper), whose host seconds are added to ``phases`` when it is a dict.
 
     ``audit=True`` extends the return to ``(valid, edge, leaf, over, counts
     [C, 7] int32)``: per cell chunks evaluated, (chunk, orientation) item
@@ -981,7 +994,8 @@ def make_csr_cell_eval(
     def eval_fn(centers, parent_valid, legtab, elong, rmounts, reach_l,
                 r_cell, xs, ys, zs, starts, origin, *,
                 cell_size: float | torch.Tensor,
-                dims, q_steps: int | None = None):
+                dims, q_steps: int | None = None,
+                phases: dict | None = None):
         C = centers.shape[0]
         if cells is not None and C != cells:
             raise ValueError(f"batch of {C} cells, built for {cells}")
@@ -993,14 +1007,16 @@ def make_csr_cell_eval(
                 centers.cpu().numpy(), elong.cpu().numpy(),
                 starts.cpu().numpy(), origin.cpu().numpy(), float(cell_size),
                 dims, window)
-        queue = build_cell_queue(
-            centers, elong, rmounts, reach_l, r_cell, starts, origin,
-            cell_size=cell_size, dims=dims, k=k, shared=shared,
-            window=window, q_steps=steps, chunk_masks=chunk_masks)
-        cellinfo = torch.cat(
-            [centers.to(torch.float32),
-             parent_valid[:, None].to(torch.float32)], dim=1).contiguous()
-        res = run(queue, cellinfo, legtab, xs, ys, zs)
+        with phase("batch.queue", phases):
+            queue = build_cell_queue(
+                centers, elong, rmounts, reach_l, r_cell, starts, origin,
+                cell_size=cell_size, dims=dims, k=k, shared=shared,
+                window=window, q_steps=steps, chunk_masks=chunk_masks)
+            cellinfo = torch.cat(
+                [centers.to(torch.float32),
+                 parent_valid[:, None].to(torch.float32)], dim=1).contiguous()
+        with phase("batch.launch", phases):
+            res = run(queue, cellinfo, legtab, xs, ys, zs)
         valid = res[:, 0] > 0
         edge = res[:, 1] > 0
         if shared:

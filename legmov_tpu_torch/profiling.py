@@ -6,7 +6,9 @@ cross_compiled.cu:54-65).  Here: a ``torch.profiler`` trace context for deep
 dives, a stage timer with the same append-to-file habit, the kernels' launch
 counters, CUDA events around every call of the kernels' C launchers, and
 the label of the device a measurement ran on (the card's name and power
-limit, or the host CPU's model).
+limit, or the host CPU's model).  The program's own spans and phase clocks
+(:class:`phase`) live in the leaf module ``spans``, which the solver and the
+kernels' wrappers import.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from legmov_tpu_torch.ops import csr_cell_eval as cce
 from legmov_tpu_torch.ops import cuda_kernels as ck
 from legmov_tpu_torch.ops import cuda_multileg as cm
 from legmov_tpu_torch.ops import cuda_multileg_dist as cmd
+from legmov_tpu_torch.spans import phase  # noqa: F401  (re-exported)
 
 
 @contextlib.contextmanager

@@ -146,16 +146,20 @@ def test_environment_switches_keep_the_flags(monkeypatch, capsys):
     base = ths.solve_positionability(fh, robot, TConfig(**ROT), **kw)
     for name, value in (("LEGMOV_CSR_QUAT_MAJOR", "1"),
                         ("LEGMOV_CSR_CHUNK_MASKS", "0"),
-                        ("LEGMOV_HIER_CS_FRAC", "0.5"),
-                        ("LEGMOV_HIER_AUDIT", "1"),
-                        ("LEGMOV_HIER_PROFILE", "1")):
+                        ("LEGMOV_HIER_CS_FRAC", "0.5")):
         monkeypatch.setenv(name, value)
         got = ths.solve_positionability(fh, robot, TConfig(**ROT), **kw)
         monkeypatch.delenv(name)
         assert _rows(got) == _rows(base), name
+    assert capsys.readouterr().out == ""
+    # the per-level breakdown and the work counters are profile=True's
+    got = ths.solve_positionability(fh, robot, TConfig(**ROT), profile=True,
+                                    **kw)
+    assert _rows(got) == _rows(base)
     out = capsys.readouterr().out
     assert "[hier-audit] depth=2" in out and "leg_elems_in_box=" in out
     assert "[hier] depth=2" in out and "host synchronisations" in out
+    assert "level.fetch=" in out and "batch.queue=" in out
 
 
 @pytest.mark.parametrize("shared", [True, False])
