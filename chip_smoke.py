@@ -106,7 +106,9 @@ kernel; ``--against`` (an earlier ``cell_kernels.cu``, phase 10) and
 ``--against-multileg`` (an earlier ``multileg_kernels.cu``, phases 5 and 7)
 time another build's kernels in turns with this tree's on the same inputs
 (K6c's walk and counters differ from earlier builds': against one, its three
-flag words are compared, the other kernels' ten words);
+flag words are compared; K6b's leg counters, words 5, 8 and 9, may only fall
+against a build without the per-element reach balls, its other seven words
+are compared; the other kernels' ten words);
 ``--against-leg`` (an earlier ``leg_kernels.cu``, with nvcc flags if any)
 does so for K1 and K2 in phases 4, 11 and 12, and phase 3 holds that
 build's K1 and K2 outputs to this tree's bit for bit.
@@ -2565,12 +2567,14 @@ def phase_cli_solve(data, quick):
 
 
 def batch_of(k_args):
-    """A captured cell-kernel call's arguments as a batch."""
+    """A captured cell-kernel call's arguments as a batch (``balls``: the
+    shared-rule kernel's per-element reach balls, None for the others)."""
     queue, cellinfo, legtab, xs, ys, zs, consts, k = k_args[:8]
     # cell_eval_quat_major takes `shared` before `window`
     window = k_args[9] if isinstance(k_args[8], bool) else k_args[8]
+    balls = next((a for a in k_args[8:] if isinstance(a, cce.Balls)), None)
     return dict(queue=queue, cellinfo=cellinfo, legtab=legtab, xs=xs, ys=ys,
-                zs=zs, consts=consts, k=k, window=window)
+                zs=zs, consts=consts, k=k, window=window, balls=balls)
 
 
 def perleg_flags(words, cellinfo):
@@ -2921,10 +2925,10 @@ def phase_cell_kernels(solve, gates, terrain, others=()):
         ("cell_shared", "shared", "shared",
          lambda q, b, xs: cce.cell_eval_shared(
              q, b["cellinfo"], b["legtab"], xs, b["ys"], b["zs"], b["consts"],
-             b["k"], b["window"]),
+             b["k"], b["window"], b["balls"]),
          lambda q, b, xs: cce.cell_eval_shared_plain(
              q, b["cellinfo"], b["legtab"], xs, b["ys"], b["zs"], b["consts"],
-             b["k"])),
+             b["k"], balls=b["balls"])),
         ("cell_cm_perleg", "per-leg", "cm_perleg",
          lambda q, b, xs: cce.cell_eval_cm_perleg(
              q, b["cellinfo"], b["legtab"], xs, b["ys"], b["zs"], b["consts"],
@@ -3394,9 +3398,26 @@ def compare_builds(label, lib, here, batches, k5_in, k5c_in):
             b = batches[mode]
             q = b["queue"]
             params = cmd.item_params(b["consts"], b["k"])
+            if form == "shared":
+                # K6b as the solve runs it: with the per-element reach
+                # balls, which an earlier build does not read
+                params = cce.ball_params(params, b["balls"])
             other = lambda: cells_call(lib, form, q, b, params, extra)
             this = lambda: cells_call(here, form, q, b, params, extra)
-        if form == "cm_perleg":
+        if form == "shared":
+            # the flags and the chunk and item counters are the earlier
+            # build's; the leg passes, their elements and the pipelines can
+            # only fall
+            o, t = other(), this()
+            kept = [0, 1, 2, 3, 4, 6, 7]
+            check(torch.equal(o[:, kept], t[:, kept])
+                  and bool((t[:, [5, 8, 9]] <= o[:, [5, 8, 9]]).all()),
+                  f"{label}: {kid} gives other flags or more work than this "
+                  "build's")
+            say(f"  {kid}: leg pipelines on elements inside the box "
+                f"{int(o[:, 9].sum())} (other) against {int(t[:, 9].sum())} "
+                "(this, with the per-element balls)")
+        elif form == "cm_perleg":
             # the walk and its counters change by design: the flags only
             ci = batches[mode]["cellinfo"]
             check(torch.equal(perleg_flags(other(), ci),
@@ -3410,7 +3431,8 @@ def compare_builds(label, lib, here, batches, k5_in, k5c_in):
              time_cuda(this, warmup=1, reps=reps),
              time_cuda(this, warmup=1, reps=reps),
              time_cuda(other, warmup=1, reps=reps)]
-        say(f"  {kid}: equal {'flags' if form == 'cm_perleg' else 'words'}; "
+        same = "flags" if form in ("cm_perleg", "shared") else "words"
+        say(f"  {kid}: equal {same}; "
             f"ms in turns: other {t[0]:.4f}, this "
             f"{t[1]:.4f}, this {t[2]:.4f}, other {t[3]:.4f}; other / this "
             f"{(t[0] + t[3]) / (t[1] + t[2]):.3f}")

@@ -40,7 +40,7 @@
 #define CK_BLOCK 256
 #define CK_OUT_WORDS 10    // valid, edge, leaf, 3 work counters, 4 element counters
 #define CK_MAX_QUATS 64
-#define CK_MAX_WINDOW 40960  // K6b keeps one byte per candidate of a chunk
+#define CK_MAX_WINDOW 40960  // K6b keeps a 16-bit word per element of a chunk
 #define CK_FULL 0xffffffffu
 
 #define CK_RING 64           // per-warp ring of candidates that passed the head
@@ -84,7 +84,8 @@
 // mirrored field for field by ctypes.Structure in ops/cuda_multileg_dist.py;
 // every member is 4 bytes wide, so there is no padding
 struct ItemParams {
-    int n_legs, table_width, k, reserved;
+    int n_legs, table_width, k;
+    int balls;  // K6b's launcher refuses 0: the balls below are unset
     float margin2, big;
     float ca[CK_MAX_LEGS], sa[CK_MAX_LEGS];      // cos / sin of -body_angle
     float body[CK_MAX_LEGS];
@@ -96,6 +97,11 @@ struct ItemParams {
     // threshold directions mega_hi, mega_lo, max, min, mid of leg l at l*5
     float dir_c[CK_MAX_LEGS * 5], dir_s[CK_MAX_LEGS * 5];
     int dir_neg[CK_MAX_LEGS * 5];
+    // leg l's reach balls in the body frame (ops/csr_cell_eval.py
+    // element_balls): centre the coxa mount, squared radii r_ok and r_in of
+    // build_cell_queue's role masks
+    float ball_x[CK_MAX_LEGS], ball_y[CK_MAX_LEGS], ball_z[CK_MAX_LEGS];
+    float ball_ok2[CK_MAX_LEGS], ball_in2[CK_MAX_LEGS];
 };
 
 // ---------------------------------------------------------------------------
@@ -1184,7 +1190,30 @@ legmov_cell_quat_major_kernel(
 // walk evaluates; a chunk's elements come from device memory once and from
 // L1/L2 for the other orientations and legs.  Operations bound it, and as in
 // K6a the forbidden fused multiply-add leaves about half of that bound
-// within reach.
+// within reach.  What the inputs need (bench_port/counts/k6.py) is one leg
+// pipeline for each foothold within leg l's reach plus the cell's crossing
+// radius of its coxa mount; the role bytes test that per chunk, and a
+// chunk's box holds 3-4x more elements than a leg's ball.
+//
+// Per-element reach balls.  The head pass also tests each
+// element's body-frame vector against leg l's balls about its coxa mount
+// (P.ball_*: the radii of build_cell_queue, r_ok = reach + 2 mm, r_in =
+// reach + the crossing radius, squared), for the legs of the role byte, and
+// keeps the legs whose pipeline the element still needs.  Exact, by the
+// argument the role bytes rest on, for one element instead of a chunk's
+// box: outside r_in of l the pipeline gives neither ok nor crossed, so a
+// skipped (element, leg) adds 0 to rc and cc, what the pipeline would add;
+// outside r_ok it gives no ok.  In the chain (edge set, no valid parent)
+// only an element with rc >= k can still change a flag, valid or leaf, and
+// rc counts only legs whose r_ok ball holds it: an element inside fewer than
+// k of those balls runs no leg (it contributes nothing, as before), the
+// others run every leg whose r_in ball holds them, so that leaf = valid &
+// !edge keeps its bits at any k.  So the walk runs at most one pipeline for
+// each (element, leg) inside r_in, the count the bound needs, and inside
+// the chain, at k = L, only on the balls' intersection.  The dropped
+// elements' counts stay 0, so the chain's vote can stop a chunk's legs
+// sooner than before: words 5 and 8 (leg passes and their elements) can
+// fall with word 9 (pipelines run); the flags cannot change.
 //
 // Design.  Occupancy and instructions: as K6a, one warp a cell in a block of
 // its own, 16 warps an SM, the row in the kernels' layout (the form with a
@@ -1192,13 +1221,37 @@ legmov_cell_quat_major_kernel(
 // leg-outer, candidate-inner inside a (chunk, orientation) item, because the
 // vote between legs is over the whole chunk; the vote is one __any_sync of
 // the warp, not a barrier of the block.
-// The block's dynamic shared memory holds the table row, the ring, and one
-// byte per chunk element (reach count bits 0-2, crossing count bits 3-5, head
-// bit 7), so any window up to 40,960 elements works without per-thread
-// arrays.  Divergence: each leg's pass takes the elements whose head bit is
-// set through the ring (compact_walk), so the pipelines run on full warps;
-// the head is recomputed from the element.
+// The block's dynamic shared memory holds the table row, the ring, and a
+// 16-bit word per chunk element (reach count bits 0-2, crossing count bits
+// 3-5, head bit 7, the legs to run bits 8-13), so any window up to 40,960
+// elements works without per-thread arrays.  Divergence: each leg's pass
+// takes the elements whose bit of that leg is set through the ring
+// (compact_walk), so the pipelines run on full warps; the head is recomputed
+// from the element.
 // ---------------------------------------------------------------------------
+
+// the legs of role mask m whose pipeline an element that passed the head
+// still needs, from its body-frame vector (above): those whose r_in ball
+// holds it, and in the chain (!chain_off) none unless at least k of m's r_ok
+// balls hold it
+__device__ __forceinline__ unsigned element_legs(const ItemParams& P,
+                                                 unsigned m, int k,
+                                                 bool chain_off, float vx,
+                                                 float vy, float vz) {
+    unsigned in = 0u;
+    int n_ok = 0;
+#pragma unroll
+    for (int l = 0; l < CK_MAX_LEGS; ++l) {
+        if (!((m >> l) & 1u)) continue;
+        const float dx = vx - P.ball_x[l];
+        const float dy = vy - P.ball_y[l];
+        const float dz = vz - P.ball_z[l];
+        const float d2 = dx * dx + dy * dy + dz * dz;
+        in |= (d2 <= P.ball_in2[l] ? 1u : 0u) << l;
+        n_ok += d2 <= P.ball_ok2[l] ? 1 : 0;
+    }
+    return (chain_off || n_ok >= k) ? in : 0u;
+}
 
 extern "C" __global__ void __launch_bounds__(32, 16)
 legmov_cell_shared_kernel(
@@ -1213,7 +1266,7 @@ legmov_cell_shared_kernel(
     const long long cell = blockIdx.x;
     float* T = reinterpret_cast<float*>(smem);
     int* ring = reinterpret_cast<int*>(T + CK_KW(P.n_legs));
-    unsigned char* cnt = reinterpret_cast<unsigned char*>(ring + CK_RING);
+    unsigned short* cnt = reinterpret_cast<unsigned short*>(ring + CK_RING);
     const int L = P.n_legs, k = P.k;
     const float* ci = cellinfo + cell * 4;
     const bool pv = ci[3] > 0.5f;
@@ -1249,14 +1302,17 @@ legmov_cell_shared_kernel(
             a[1] += 1;
             a[4] += len;
             stage_row_warp(T, P, legtab, q, ci, pv, lane);
+            const bool chain_off = (!acc1) | pv;
             for (int c = lane; c < len; c += 32) {
                 float vx, vy, vz;
-                cnt[c] = item_head(T, xs[start + c], ys[start + c],
-                                   zs[start + c], vx, vy, vz)
-                             ? 0x80u
-                             : 0u;
+                const bool h = item_head(T, xs[start + c], ys[start + c],
+                                         zs[start + c], vx, vy, vz);
+                cnt[c] = h ? (unsigned short)(0x80u |
+                                              (element_legs(P, m, k, chain_off,
+                                                            vx, vy, vz)
+                                               << 8))
+                           : (unsigned short)0u;
             }
-            const bool chain_off = (!acc1) | pv;
             bool viable = true;
             int rcmax = 0;  // rc only grows: the lanes' maxima give the chunk's
             for (int l = 0; l < L; ++l) {
@@ -1265,7 +1321,7 @@ legmov_cell_shared_kernel(
                     a[5] += len;
                     compact_walk(
                         ring, len, lane,
-                        [&](int c) { return (cnt[c] & 0x80u) != 0u; },
+                        [&](int c) { return ((cnt[c] >> (8 + l)) & 1u) != 0u; },
                         [&](int c) {
                             work += 1;
                             const long long e = start + c;
@@ -1277,7 +1333,8 @@ legmov_cell_shared_kernel(
                             const int rc = (int)(b & 7u) + (int)(r & 1u);
                             const int cc =
                                 (int)((b >> 3) & 7u) + (int)((r >> 1) & 1u);
-                            cnt[c] = (unsigned char)(0x80u | rc | (cc << 3));
+                            cnt[c] = (unsigned short)((b & ~0x3Fu) | rc |
+                                                      (cc << 3));
                             rcmax = rc > rcmax ? rc : rcmax;
                         });
                 }
@@ -1709,10 +1766,10 @@ static bool cell_args_ok(long long CH, int S, const ItemParams* p) {
 }
 
 // dynamic shared memory of a K6a / K6b block: the warp's staged row and
-// ring, and for K6b one byte per chunk element
+// ring, and for K6b a 16-bit word per chunk element
 static size_t cell_block_bytes(int n_legs, int window, bool counts) {
     const size_t row = (size_t)CK_KW(n_legs) * 4 + CK_RING * 4;
-    return row + (counts ? ((size_t)window + 15) / 16 * 16 : 0);
+    return row + (counts ? ((size_t)window * 2 + 15) / 16 * 16 : 0);
 }
 
 // dynamic shared memory of a K6c block: the row as the table holds it, the
@@ -1755,8 +1812,8 @@ extern "C" int legmov_cell_shared(
     const float* ys, const float* zs, int* out, long long C, long long CH,
     int S, int window, const ItemParams* params, void* stream) {
     if (C <= 0) return 0;
-    if (!cell_args_ok(CH, S, params) || C > 0x7fffffffLL ||
-        window < 1 || window > CK_MAX_WINDOW)
+    if (!cell_args_ok(CH, S, params) || !params->balls ||
+        C > 0x7fffffffLL || window < 1 || window > CK_MAX_WINDOW)
         return (int)cudaErrorInvalidValue;
     const size_t bytes = cell_block_bytes(params->n_legs, window, true);
     const cudaError_t e =

@@ -28,6 +28,9 @@ ops/csr_grid.py, shaped for cells instead of poses:
 * the kernels SKIP chunks that cannot change the cell's remaining undecided
   flags and skip masked-out legs inside evaluated chunks.  Exact by
   monotonicity + the superset property of the ball masks;
+* the shared-rule kernel also tests each element against the same balls
+  (:func:`element_balls`), so that a leg's pipeline runs only on the
+  elements it can reach or cross;
 * the per-orientation workspace tables are one ``[S, W]`` table per level
   (:func:`level_tables`): they depend only on the orientation, not the cell.
 
@@ -95,7 +98,7 @@ SENTINEL = 1e9
 #: holds at a time (``[cells, chunks, S, L]`` float32 temporaries)
 _MASK_TILE = 1 << 25
 
-MAX_WINDOW = 40960  # the shared kernel keeps one byte per chunk element
+MAX_WINDOW = 40960  # the shared kernel keeps 16 bits per chunk element
 MAX_QUATS = 64
 
 
@@ -162,6 +165,49 @@ def ball_mask_params(quats: torch.Tensor, robot: LegDimensions, half,
         np.sqrt(max(h2m, float(np.sum(hm * hm)))) + _BALL_EPS))
     return (rmounts,
             torch.as_tensor(np.asarray(reach_l, _f32), device=dev), r_cell)
+
+
+def _ball_radii(reach_l: torch.Tensor, r_cell: float):
+    """``(r_ok, r_in) [L]``: leg l's reach-ball radius for ok (its reach
+    plus the fp32 slack) and for crossed (its reach plus the crossing
+    radius ``r_cell`` of :func:`ball_mask_params`)."""
+    return reach_l + float(_BALL_EPS), reach_l + float(r_cell)
+
+
+class Balls(NamedTuple):
+    """Every leg's reach balls in the body frame, for the shared-rule
+    kernel's per-element test (CPU tensors)."""
+
+    mounts: torch.Tensor  # [L, 3] float32 coxa mounts, the balls' centres
+    ok2: torch.Tensor  # [L] float32 r_ok squared
+    in2: torch.Tensor  # [L] float32 r_in squared
+
+
+def element_balls(robot: LegDimensions, r_cell: float) -> Balls:
+    """The balls of :func:`build_cell_queue`'s role masks for one element:
+    centred on the unrotated coxa mounts (an element's body-frame vector is
+    its world offset from the cell un-rotated, so the distance is the one
+    the masks bound), with the masks' squared radii, bit for bit."""
+    mount_vec, reach_l = robot_geometry(robot)
+    r_ok, r_in = _ball_radii(torch.as_tensor(np.asarray(reach_l, _f32)),
+                             r_cell)
+    return Balls(torch.as_tensor(mount_vec, dtype=torch.float32),
+                 r_ok * r_ok, r_in * r_in)
+
+
+def ball_params(params, balls: Balls):
+    """A copy of the kernels' parameter block ``params`` that switches the
+    shared-rule kernel's per-element test on with ``balls``."""
+    p = type(params).from_buffer_copy(params)
+    L = balls.ok2.shape[0]
+    if L != p.n_legs:
+        raise ValueError(f"balls for {L} legs, parameters for {p.n_legs}")
+    p.balls = 1
+    ok2, in2 = balls.ok2.tolist(), balls.in2.tolist()
+    for l, (x, y, z) in enumerate(balls.mounts.tolist()):
+        p.ball_x[l], p.ball_y[l], p.ball_z[l] = x, y, z
+        p.ball_ok2[l], p.ball_in2[l] = ok2[l], in2[l]
+    return p
 
 
 def level_tables(quats, half, parent_half, robot: LegDimensions,
@@ -250,8 +296,7 @@ def build_cell_queue(
 
     # ball centers = cell center + quat-rotated mounts [C, S, L, 3]
     bc = centers[:, None, None, :] + rmounts[None, :, :, :]
-    r_ok = reach_l + float(_BALL_EPS)
-    r_in = reach_l + float(r_cell)
+    r_ok, r_in = _ball_radii(reach_l, r_cell)
     r_ok2 = r_ok * r_ok  # [L]
     r_in2 = r_in * r_in
     leg_bit = (1 << torch.arange(L, device=dev, dtype=torch.int32))
@@ -484,12 +529,14 @@ class _Walk:
         return s, pre, vx, vy, vz
 
     def leg(self, rows, go, s, l, pre, vx, vy, vz):
-        """Leg ``l`` on the cells ``rows``, zeroed where ``go [R]`` is off;
-        counts the pipelines that ran on an element inside the box."""
+        """Leg ``l`` on the cells ``rows``, zeroed where ``go`` (``[R]``,
+        or ``[R, W]`` per element) is off; counts the pipelines that ran on
+        an element inside the box."""
         okp, crossed = cmd.item_leg_plain(s, l, self.consts[l], pre, vx, vy,
                                           vz)
-        self.counts[rows, 6] += (pre & go[:, None]).sum(dim=1)
-        return okp & go[:, None], crossed & go[:, None]
+        go = go if go.dim() == 2 else go[:, None]
+        self.counts[rows, 6] += (pre & go).sum(dim=1)
+        return okp & go, crossed & go
 
     def count(self, rows, cols, amount):
         for c, a in zip(cols, amount):
@@ -575,14 +622,40 @@ def cell_eval_quat_major_plain(queue, cellinfo, legtab, xs, ys, zs, consts,
     return wk.out(acc[0], acc[1], acc[2])
 
 
+def _element_legs(balls, mr, k, chain_off, vx, vy, vz):
+    """``[R, W]`` int32: per element the legs of the role masks ``mr [R]``
+    whose pipeline it still needs, in the kernel's arithmetic (see
+    csrc/cell_kernels.cu ``element_legs``): those whose r_in ball holds its
+    body-frame vector, and where ``chain_off [R]`` is off none unless at
+    least ``k`` of the masks' r_ok balls hold it."""
+    inside = torch.zeros(vx.shape, dtype=torch.int32, device=vx.device)
+    n_ok = torch.zeros(vx.shape, dtype=torch.int32, device=vx.device)
+    for l in range(balls.ok2.shape[0]):
+        on = (((mr >> l) & 1) != 0)[:, None]
+        dx = vx - balls.mounts[l, 0]
+        dy = vy - balls.mounts[l, 1]
+        dz = vz - balls.mounts[l, 2]
+        d2 = dx * dx + dy * dy + dz * dz
+        inside |= ((d2 <= balls.in2[l]) & on).to(torch.int32) << l
+        n_ok += ((d2 <= balls.ok2[l]) & on).to(torch.int32)
+    return torch.where(chain_off[:, None] | (n_ok >= k), inside, 0)
+
+
 def cell_eval_shared_plain(queue, cellinfo, legtab, xs, ys, zs, consts,
-                           k: int, skips: bool = True) -> torch.Tensor:
+                           k: int, skips: bool = True,
+                           balls: Balls | None = None) -> torch.Tensor:
     """Plain PyTorch version of the chunk-major shared-rule kernel (see
-    :func:`cell_eval_quat_major_plain` for the result)."""
+    :func:`cell_eval_quat_major_plain` for the result).  ``balls``
+    (:func:`element_balls`) adds the kernel's per-element reach-ball test,
+    which only ``skips=False`` leaves off."""
     wk = _Walk(queue, cellinfo, legtab, xs, ys, zs, consts, k)
     C, L, dev = wk.C, wk.L, wk.dev
     acc = torch.zeros((3, C), dtype=torch.bool, device=dev)
     all_legs = (1 << L) - 1
+    if skips and balls is not None:
+        balls = Balls(*(t.to(dev) for t in balls))
+    else:
+        balls = None
 
     def wanted(vbit, ebit):
         return ((vbit | wk.pv) & ~(acc[0] & acc[2])) | (ebit & ~acc[1])
@@ -620,11 +693,16 @@ def cell_eval_shared_plain(queue, cellinfo, legtab, xs, ys, zs, consts,
             chain_off = ~acc[1, rows] | wk.pv[rows]
             if not skips:
                 chain_off = torch.ones_like(chain_off)
+            # per element, the legs it still needs (kernel: bits 8-13 of
+            # its word)
+            legs = (mr[:, None] if balls is None else
+                    _element_legs(balls, mr, k, chain_off, vx, vy, vz))
             viable = torch.ones_like(chain_off)
             for l in range(L):
                 go = (((mr >> l) & 1) != 0) & (chain_off | viable)
                 if bool(go.any()):
-                    okp, crossed = wk.leg(rows, go, s, l, pre, vx, vy, vz)
+                    sel = go[:, None] & (((legs >> l) & 1) != 0)
+                    okp, crossed = wk.leg(rows, sel, s, l, pre, vx, vy, vz)
                     rc += okp
                     cc += crossed
                     wk.count(rows, (2, 5), (go, go * ln))
@@ -892,13 +970,20 @@ cell_eval_quat_major.launches = 0
 
 
 def cell_eval_shared(queue, cellinfo, legtab, xs, ys, zs, consts, k: int,
-                     window: int, params=None) -> torch.Tensor:
+                     window: int, balls: Balls,
+                     params=None) -> torch.Tensor:
     """Chunk-major shared-rule CSR cell evaluation (arguments and result as
-    :func:`cell_eval_quat_major`)."""
+    :func:`cell_eval_quat_major`), with the per-element reach-ball test of
+    ``balls`` (:func:`element_balls` of the level).  ``params``, when given,
+    is :func:`ball_params` of those balls."""
+    if params is None:
+        params = ball_params(cmd.item_params(consts, k), balls)
+    elif not params.balls:
+        raise ValueError("parameter block without the reach balls")
     return _launch(
         "legmov_cell_shared", cell_eval_shared,
         lambda: cell_eval_shared_plain(queue, cellinfo, legtab, xs, ys, zs,
-                                       consts, k),
+                                       consts, k, balls=balls),
         queue, cellinfo, legtab, xs, ys, zs, consts, k, window, params)
 
 
@@ -962,7 +1047,8 @@ def make_csr_cell_eval(
     The kernels count always; the flags do not depend on it.
 
     ``chunk_masks``: see :func:`build_cell_queue`.  ``plain`` asks for the
-    plain versions on any device.
+    plain versions on any device.  The shared-rule chunk-major form tests
+    each element against the level's :func:`element_balls` (of ``r_cell``).
     """
     L = leg_count(robot)
     if L > 6:
@@ -976,20 +1062,26 @@ def make_csr_cell_eval(
     form = ("shared" if use_cm and shared
             else "cm_perleg" if use_cm else "quat_major")
     fixed_steps = q_steps
+    level_balls = {}  # r_cell -> the level's element_balls and ball_params
 
-    def run(*level):  # queue, cellinfo, legtab, xs, ys, zs
+    def run(r_cell, *level):  # queue, cellinfo, legtab, xs, ys, zs
         if form == "quat_major":
             if plain:
                 return cell_eval_quat_major_plain(*level, consts, k, shared)
             return cell_eval_quat_major(*level, consts, k, shared, window,
                                         params)
-        kernel_fn, plain_fn = {
-            "shared": (cell_eval_shared, cell_eval_shared_plain),
-            "cm_perleg": (cell_eval_cm_perleg, cell_eval_cm_perleg_plain),
-        }[form]
+        if form == "cm_perleg":
+            if plain:
+                return cell_eval_cm_perleg_plain(*level, consts, k)
+            return cell_eval_cm_perleg(*level, consts, k, window, params)
+        r_cell = float(r_cell)
+        if r_cell not in level_balls:
+            balls = element_balls(robot, r_cell)
+            level_balls[r_cell] = balls, ball_params(params, balls)
+        balls, ball_block = level_balls[r_cell]
         if plain:
-            return plain_fn(*level, consts, k)
-        return kernel_fn(*level, consts, k, window, params)
+            return cell_eval_shared_plain(*level, consts, k, balls=balls)
+        return cell_eval_shared(*level, consts, k, window, balls, ball_block)
 
     def eval_fn(centers, parent_valid, legtab, elong, rmounts, reach_l,
                 r_cell, xs, ys, zs, starts, origin, *,
@@ -1016,7 +1108,7 @@ def make_csr_cell_eval(
                 [centers.to(torch.float32),
                  parent_valid[:, None].to(torch.float32)], dim=1).contiguous()
         with phase("batch.launch", phases):
-            res = run(queue, cellinfo, legtab, xs, ys, zs)
+            res = run(r_cell, queue, cellinfo, legtab, xs, ys, zs)
         valid = res[:, 0] > 0
         edge = res[:, 1] > 0
         if shared:

@@ -580,7 +580,7 @@ def multileg_distance_kernel_plain(tab, gx, gy, gz, consts, k: int,
 class _ItemParams(ctypes.Structure):
     _fields_ = [
         ("n_legs", ctypes.c_int), ("table_width", ctypes.c_int),
-        ("k", ctypes.c_int), ("reserved", ctypes.c_int),
+        ("k", ctypes.c_int), ("balls", ctypes.c_int),
         ("margin2", ctypes.c_float), ("big", ctypes.c_float),
         ("ca", ctypes.c_float * MAX_LEGS), ("sa", ctypes.c_float * MAX_LEGS),
         ("body", ctypes.c_float * MAX_LEGS),
@@ -595,6 +595,13 @@ class _ItemParams(ctypes.Structure):
         ("dir_c", ctypes.c_float * (MAX_LEGS * 5)),
         ("dir_s", ctypes.c_float * (MAX_LEGS * 5)),
         ("dir_neg", ctypes.c_int * (MAX_LEGS * 5)),
+        # K6b's per-element reach balls (ops/csr_cell_eval.py
+        # ball_params); K6b refuses a block whose ``balls`` is 0
+        ("ball_x", ctypes.c_float * MAX_LEGS),
+        ("ball_y", ctypes.c_float * MAX_LEGS),
+        ("ball_z", ctypes.c_float * MAX_LEGS),
+        ("ball_ok2", ctypes.c_float * MAX_LEGS),
+        ("ball_in2", ctypes.c_float * MAX_LEGS),
     ]
 
 

@@ -295,6 +295,15 @@ def test_flags_do_not_depend_on_the_skips(shared):
         assert torch.equal(without[:, :3], ref[:, :3])
         # and they do save work
         assert int(with_skips[:, 8].sum()) < int(without[:, 8].sum())
+    if shared:
+        # the shared kernel's per-element reach balls: the same flags, fewer
+        # pipelines on elements inside the box; off without the skips
+        balls = cce.element_balls(robot, lv.rc)
+        with_balls = forms[0](q, balls=balls)
+        assert torch.equal(with_balls[:, :3], ref[:, :3])
+        assert int(with_balls[:, 9].sum()) < int(ref[:, 9].sum())
+        assert torch.equal(forms[0](full, skips=False, balls=balls),
+                           forms[0](full, skips=False))
 
 
 @pytest.mark.parametrize("shared", [True, False])
@@ -313,7 +322,10 @@ def test_words_do_not_depend_on_the_order_of_the_cells(shared):
     cellinfo = torch.cat([_t(centers), _t(pv)[:, None].float()], dim=1)
     permuted = cce.CellQueue(q.cst[o], q.cln[o], q.role[o], q.tot[o], q.over)
     tail = (lv.legtab, lv.csr.xs, lv.csr.ys, lv.csr.zs, consts, k)
-    forms = ([lambda qq, ci: cce.cell_eval_shared_plain(qq, ci, *tail)]
+    balls = cce.element_balls(robot, lv.rc)
+    forms = ([lambda qq, ci: cce.cell_eval_shared_plain(qq, ci, *tail),
+              lambda qq, ci: cce.cell_eval_shared_plain(qq, ci, *tail,
+                                                        balls=balls)]
              if shared else [])
     forms.append(lambda qq, ci: cce.cell_eval_quat_major_plain(
         qq, ci, *tail, shared))
@@ -324,6 +336,173 @@ def test_words_do_not_depend_on_the_order_of_the_cells(shared):
         back[o] = got
         assert torch.equal(back, want)
         assert want[:, 3].sum() > 0
+
+
+def _element_level(name):
+    """A level for the per-element ball tests: ``_scene``'s moonbot level,
+    or an M2 level as the depth-7 solve has it (20 mm cells, no margin, the
+    solver's 27 orientations, of which every fourth)."""
+    from legmov_tpu_torch.models import hier_solver as ths
+    from legmov_tpu_torch.config import SolverConfig
+
+    if name == "moonbot":
+        _, quats, centers, _ = _scene(seed=9)
+        return (trobot.get_moonbot_robot(), quats, centers[:3], HALF,
+                PARENT_HALF, MARGIN, REACH)
+    robot = trobot.get_m2_robot()
+    quats = ths.orientation_samples(SolverConfig())[::4]
+    half = np.full(3, 10.0, np.float32)
+    centers = np.random.default_rng(3).uniform(-300, 300, (3, 3)).astype(
+        np.float32)
+    return (robot, quats, centers, half, 2 * half, 0.0,
+            ths._total_reach(robot))
+
+
+@pytest.mark.parametrize("name", ["moonbot", "m2"])
+def test_element_balls_skip_only_what_the_pipeline_leaves_out(name):
+    """The shared kernel's per-element test (plain arithmetic:
+    ``_element_legs``) on footholds on thin shells just inside and just
+    outside each leg's r_ok and r_in balls, inside the r_in ball, and on
+    NaN, inf and SENTINEL rows: a leg it skips outside the chain gives
+    neither ok nor crossed, and in the chain an element it drops has fewer
+    than k ok legs while an element it keeps has its skipped legs give
+    neither.  Its balls are the role masks' own, bit for bit."""
+    robot, quats, centers, half, parent_half, margin, reach = \
+        _element_level(name)
+    L = trobot.leg_count(robot)
+    qt = _t(quats)
+    legtab = cce.level_tables(qt, half, parent_half, robot, margin, reach)
+    rm, rl, rc = cce.ball_mask_params(qt, robot, half, margin)
+    balls = cce.element_balls(robot, rc)
+    r_ok, r_in = rl + float(cce._BALL_EPS), rl + rc
+    assert torch.equal(balls.ok2, r_ok * r_ok)
+    assert torch.equal(balls.in2, r_in * r_in)
+    from legmov_tpu_torch.ops import quaternion as tq
+    np.testing.assert_allclose(
+        tq.rotate(qt[:, None, :], balls.mounts[None]).numpy(), rm.numpy(),
+        atol=1e-3)
+    consts = cmd.dist_leg_constants(robot)
+    rng = np.random.default_rng(21)
+    seen = np.zeros(4, bool)
+    for c in centers:
+        for q in range(quats.shape[0]):
+            pts = []
+            for l in range(L):
+                bc = c + rm[q, l].numpy()
+                for r in (float(r_ok[l]), float(r_in[l])):
+                    for rr in (r - 0.05, r + 0.05):
+                        d = rng.normal(size=(48, 3))
+                        d /= np.linalg.norm(d, axis=1, keepdims=True)
+                        pts.append(bc + rr * d)
+                u = rng.normal(size=(96, 3))
+                u *= (float(r_in[l]) * rng.random((96, 1)) ** (1 / 3)
+                      / np.linalg.norm(u, axis=1, keepdims=True))
+                pts.append(bc + u)
+            pts = np.concatenate(pts).astype(np.float32)
+            pts[:3] = [np.nan, np.inf, -np.inf]
+            pts[3] = cce.SENTINEL
+            xs, ys, zs = (torch.from_numpy(
+                np.ascontiguousarray(pts[None, :, i])) for i in range(3))
+
+            def s(i):
+                if 4 <= i <= 6:
+                    return torch.tensor(float(c[i - 4]))
+                return legtab[q, i] if i != 7 else torch.tensor(0.0)
+
+            pre, vx, vy, vz = cmd.item_head_plain(s, xs, ys, zs)
+            assert not pre[0, :4].any()
+            outs = [cmd.item_leg_plain(s, l, consts[l], pre, vx, vy, vz)
+                    for l in range(L)]
+            ok = torch.stack([o[0] for o in outs], dim=-1)[0]
+            cr = torch.stack([o[1] for o in outs], dim=-1)[0]
+            p0 = pre[0]
+            all_legs = torch.tensor([(1 << L) - 1])
+            for chain in (False, True):
+                for k in ((L, L - 1) if chain else (L,)):
+                    legs = cce._element_legs(
+                        balls, all_legs, k, torch.tensor([not chain]), vx,
+                        vy, vz)[0]
+                    run = ((legs[:, None] >> torch.arange(L)) & 1) != 0
+                    kept = p0 & (legs != 0)
+                    skipped = kept[:, None] & ~run
+                    assert not (ok & skipped).any() and not (
+                        cr & skipped).any(), (name, chain, k)
+                    if chain:
+                        dropped = p0 & (legs == 0)
+                        assert (ok[dropped].sum(dim=1) < k).all()
+                    else:
+                        assert not (legs[:4] != 0).any()
+                        seen[:2] |= (bool((p0 & ~run.all(1)).any()),
+                                     bool((p0 & run.any(1)).any()))
+            seen[2] |= bool(ok.any())
+            seen[3] |= bool(cr.any())
+    assert seen.all(), seen  # skips and runs, ok and crossed, all reached
+
+
+def test_ball_params_switch_the_test_on_in_a_copy():
+    """``ball_params`` sets the kernel's ball fields in a copy of the
+    parameter block and refuses balls of another leg count; the wrapper
+    on CPU tensors is the plain version with the same balls, and refuses
+    a block without them."""
+    robot = trobot.get_moonbot_robot()
+    consts = cmd.dist_leg_constants(robot)
+    base = cmd.item_params(consts, 3)
+    balls = cce.element_balls(robot, 60.0)
+    p = cce.ball_params(base, balls)
+    assert base.balls == 0 and p.balls == 1 and p.k == 3
+    f = cmd._ItemParams
+    for lo, hi in ((0, f.balls.offset), (f.margin2.offset, f.ball_x.offset)):
+        assert bytes(p)[lo:hi] == bytes(base)[lo:hi]
+    for l in range(4):
+        assert (p.ball_x[l], p.ball_y[l], p.ball_z[l]) == tuple(
+            float(v) for v in balls.mounts[l])
+        assert p.ball_ok2[l] == float(balls.ok2[l])
+        assert p.ball_in2[l] == float(balls.in2[l])
+    with pytest.raises(ValueError, match="legs"):
+        cce.ball_params(
+            base, cce.element_balls(trobot.get_moonbot_robot(
+                trobot.HEX_MOUNTS), 60.0))
+    fh, quats, centers, pv = _scene(seed=9)
+    lv = _Level(robot, fh, quats)
+    q = lv.queue(centers, 3, True)
+    cellinfo = torch.cat([_t(centers), _t(pv)[:, None].float()], dim=1)
+    tail = (lv.legtab, lv.csr.xs, lv.csr.ys, lv.csr.zs, consts, 3)
+    b = cce.element_balls(robot, lv.rc)
+    want = cce.cell_eval_shared_plain(q, cellinfo, *tail, balls=b)
+    assert torch.equal(cce.cell_eval_shared(q, cellinfo, *tail, WINDOW, b),
+                       want)
+    assert torch.equal(
+        cce.cell_eval_shared(q, cellinfo, *tail, WINDOW, b,
+                             cce.ball_params(base, b)), want)
+    with pytest.raises(ValueError, match="balls"):
+        cce.cell_eval_shared(q, cellinfo, *tail, WINDOW, b, base)
+
+
+@pytest.mark.parametrize("mounts,k,seed", [("quad", 3, 9), ("quad", 4, 9),
+                                           ("quad", 4, 11), ("hex", 4, 2),
+                                           ("hex", 3, 12)])
+def test_element_balls_keep_every_flag_and_cut_the_pipelines(mounts, k,
+                                                             seed):
+    """The shared walk with the per-element balls against the walk
+    without: the same flags and chunk and item counters; no more leg
+    passes (the chain's vote can stop sooner), and fewer pipelines."""
+    robot = trobot.get_moonbot_robot(
+        trobot.QUAD_MOUNTS if mounts == "quad" else trobot.HEX_MOUNTS)
+    fh, quats, centers, pv = (_tall_scene(seed) if seed > 10
+                              else _scene(seed=seed))
+    lv = _Level(robot, fh, quats)
+    q = lv.queue(centers, k, True)
+    cellinfo = torch.cat([_t(centers), _t(pv)[:, None].float()], dim=1)
+    tail = (lv.legtab, lv.csr.xs, lv.csr.ys, lv.csr.zs,
+            cmd.dist_leg_constants(robot), k)
+    off = cce.cell_eval_shared_plain(q, cellinfo, *tail)
+    on = cce.cell_eval_shared_plain(q, cellinfo, *tail,
+                                    balls=cce.element_balls(robot, lv.rc))
+    same = [0, 1, 2, 3, 4, 6, 7]
+    assert torch.equal(on[:, same], off[:, same])
+    assert (on[:, [5, 8]] <= off[:, [5, 8]]).all()
+    assert int(on[:, 9].sum()) < int(off[:, 9].sum())
+    assert (on[:, 9] <= off[:, 9]).all()
 
 
 def test_hexapod_shared_four_of_six_equals_jax():
@@ -355,11 +534,12 @@ def test_wrappers_run_the_plain_versions_on_cpu_tensors_and_check_shapes():
     consts = cmd.dist_leg_constants(robot)
     cellinfo = torch.cat([_t(centers), _t(pv)[:, None].float()], dim=1)
     tail = (lv.legtab, lv.csr.xs, lv.csr.ys, lv.csr.zs, consts, 3)
+    b = cce.element_balls(robot, lv.rc)
     before = (cce.cell_eval_quat_major.launches, cce.cell_eval_shared.launches,
               cce.cell_eval_cm_perleg.launches)
     assert torch.equal(
-        cce.cell_eval_shared(q, cellinfo, *tail, WINDOW),
-        cce.cell_eval_shared_plain(q, cellinfo, *tail))
+        cce.cell_eval_shared(q, cellinfo, *tail, WINDOW, b),
+        cce.cell_eval_shared_plain(q, cellinfo, *tail, balls=b))
     assert torch.equal(
         cce.cell_eval_quat_major(q, cellinfo, *tail, False, WINDOW),
         cce.cell_eval_quat_major_plain(q, cellinfo, *tail, False))
@@ -371,15 +551,15 @@ def test_wrappers_run_the_plain_versions_on_cpu_tensors_and_check_shapes():
                       cce.cell_eval_cm_perleg.launches)
     assert cmd._bound is None  # nothing was built
     with pytest.raises(ValueError):
-        cce.cell_eval_shared(q, cellinfo[:4].contiguous(), *tail, WINDOW)
+        cce.cell_eval_shared(q, cellinfo[:4].contiguous(), *tail, WINDOW, b)
     with pytest.raises(ValueError):
         cce.cell_eval_shared(q, cellinfo, lv.legtab[:2].contiguous(),
-                             *tail[1:], WINDOW)
+                             *tail[1:], WINDOW, b)
     with pytest.raises(TypeError):
         cce.cell_eval_shared(q._replace(role=q.role.to(torch.int32)),
-                             cellinfo, *tail, WINDOW)
+                             cellinfo, *tail, WINDOW, b)
     with pytest.raises(ValueError):
-        cce.cell_eval_shared(q, cellinfo, *tail, cce.MAX_WINDOW + 1)
+        cce.cell_eval_shared(q, cellinfo, *tail, cce.MAX_WINDOW + 1, b)
     with pytest.raises(ValueError):
         cce.make_csr_cell_eval(robot, k=3, n_quats=S, cells=16)(
             _t(centers), _t(pv), lv.legtab, _t(ELONG), lv.rm, lv.rl, lv.rc,
